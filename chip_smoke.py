@@ -1,0 +1,442 @@
+#!/usr/bin/env python3
+"""GPU smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py            # one CUDA GPU; builds the kernels
+
+Phases (each prints its seconds):
+
+  1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and hold
+     each against its plain PyTorch version on the card (bit-equal ints):
+     ragged widths, complete / circulant / table mask graphs,
+     ``slot_offset`` shards, rows beyond the session, a nonzero uniform
+     offset, and the main path's own shapes;
+  2. the main path: the buffered-async aggregation server (``AsyncServer``)
+     on qwen2-1.5b's published widths, depth cut from 28 to 2 layers
+     (326,970,880 parameters, 1.31 GB f32 per delta), ``buffer_size=8``,
+     ``param_chunk_elems=2**25`` (5 chunks; the 233M-element embedding alone),
+     at ``secure_agg_bits`` 32 and 16 (the packed 19-bit wire).  Each masked
+     mode runs a full session and a 6-of-8 session whose flush recovers the
+     two dropped slots, and must decode to parameters bit-equal to its
+     unmasked counterpart on the same deltas and keys: ``client``
+     (encode_push/push_encoded) and ``tee_stream`` against the streamed
+     ``off`` engine, batched ``tee`` against ``stream_encode=False`` ``off``;
+  3. the kernel launch counts of that run (and zero plain-version calls);
+  4. the card's name and power limit, each kernel's time at the main path's
+     largest shape beside its bound and its plain version's time.
+
+The last line is ``{"ok": true, "device": {...}}``; any failure exits
+non-zero before it.  Deltas and weights are random, made from ``--seed``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit).  The
+# kernels' integer work is counted against the 67 T/s 32-bit CUDA-core rate
+# — the sheet gives no int32 rate; the card issues int32 at no more than
+# that, so the bound stays a lower bound.
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+# integer operations of one Threefry-2x32-13 evaluation: 2 initial key adds,
+# 13 rounds of (add, rotate, xor), 3 key injections of 3 adds
+THREEFRY_OPS = 2 + 13 * 3 + 3 * 3
+
+DEVICE = "cuda"
+NUM_LAYERS = 2
+BUFFER = 8
+CHUNK_ELEMS = 1 << 25
+EXPECT_CHUNKS = 5
+EXPECT_PARAMS = 326_970_880
+DELTA_SCALE = 2e-5  # per-element std: a delta's L2 norm is ~0.36 < clip 1.0
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+class Phase:
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        log(f"== {self.name}")
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            log(f"== {self.name}: {time.perf_counter() - self.t0:.1f} s")
+        return False
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def sync(torch) -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# phase 1: build + kernel parity
+# ---------------------------------------------------------------------------
+def build_kernels() -> None:
+    from repro_torch.kernels import _build
+    logs = _build.build_all(verbose=True)
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  ptxas[{name}]: {line.strip()}")
+    for name in _build.SOURCES:
+        _build.load(name)
+        log(f"  loaded {_build.library_path(name).name}")
+
+
+def _sessions(torch, ksa, sa):
+    perm = [3, 0, 9, 1, 4, 8, 2, 7, 6, 5]
+    table = sa.neighbor_table(10, 4, perm, device="cuda")
+    return {
+        "complete8": ksa.SessionMeta(key_words=(0x1234, 0x5A5E), num_slots=8),
+        "ring10": ksa.SessionMeta(key_words=(7, 9), num_slots=10, degree=4),
+        "table10": ksa.SessionMeta(key_words=(11, 13), num_slots=10,
+                                   degree=4, neighbors=table),
+    }
+
+
+def kernel_parity(torch) -> None:
+    from repro_torch.core.fl import secure_agg as sa
+    from repro_torch.kernels import prf
+    from repro_torch.kernels import secure_agg as ksa
+    g = torch.Generator(device="cuda").manual_seed(1)
+    sessions = _sessions(torch, ksa, sa)
+    scale = 67108862.75 / 4.0
+    n = 0
+    for D in (1, 1000, 4097, (1 << 20) + 3):
+        x = torch.randn(D, generator=g, device="cuda") * 1e-3
+        for name, s in sessions.items():
+            for slot, u_off in ((0, 0), (s.num_slots - 1, 12345)):
+                got = ksa.quantize_mask_prf(x, scale, slot, (5, 6), s,
+                                            u_offset=u_off)
+                want = ksa.quantize_mask_prf_plain(x, scale, slot, (5, 6), s,
+                                                   u_offset=u_off)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"quantize_mask_prf != plain (D={D}, {name}, "
+                      f"slot={slot}, u_offset={u_off})")
+                n += 1
+    log(f"  quantize_mask_prf: {n} cases bit-equal to the plain version")
+    n = 0
+    for C, D in ((8, 1), (8, 777), (5, (1 << 18) + 5)):
+        x = torch.randn(C, D, generator=g, device="cuda") * 1e-3
+        w = torch.rand(C, generator=g, device="cuda")
+        u = prf.uniform_block(3, 4, C * D, device="cuda").reshape(C, D)
+        m = torch.randint(-2 ** 31, 2 ** 31, (C, D), generator=g,
+                          device="cuda", dtype=torch.int64).to(torch.int32)
+        lanes = [("plain", {}), ("masks", {"masks": m})]
+        for name, s in sessions.items():
+            lanes.append((name, {"session": s}))
+            # a shard: rows at slots 3.., the ones beyond the session gated
+            lanes.append((name + "+offset3",
+                          {"session": s._replace(slot_offset=3)}))
+        for name, kw in lanes:
+            got = ksa.weighted_quantize_accum(x, w, u, scale, **kw)
+            want = ksa.weighted_quantize_accum_plain(x, w, u, scale, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"weighted_quantize_accum != plain (C={C}, D={D}, {name})")
+            n += 1
+    log(f"  weighted_quantize_accum: {n} cases bit-equal to the plain "
+        "version")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the main path at full width
+# ---------------------------------------------------------------------------
+def _cuda_ms(torch, fn, reps: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+class MainPath:
+    """Drives ``AsyncServer`` sessions on one set of seeded deltas."""
+
+    def __init__(self, torch, seed: int, cfg):
+        from repro_torch.models.model import init_params
+        self.torch = torch
+        self.seed = seed
+        self.cfg = cfg.with_overrides(num_layers=NUM_LAYERS)
+        g = torch.Generator(device=DEVICE).manual_seed(seed)
+        self.params = init_params(self.cfg, g, device=DEVICE)
+        self.timings = {}
+
+    def delta(self, i: int):
+        from repro_torch import tree as T
+        g = self.torch.Generator(device=DEVICE).manual_seed(
+            self.seed * 7919 + 1000 + i)
+        return T.tree_map(
+            lambda p: self.torch.randn(p.shape, generator=g, device=DEVICE)
+            * DELTA_SCALE, self.params)
+
+    def run(self, mode: str, bits: int, **kw):
+        """Session 0: 8 pushes (auto-apply).  Session 1: slots 3 and 6 drop
+        out, ``flush()`` recovers.  Returns the final parameters."""
+        torch = self.torch
+        from repro_torch.configs.base import FLConfig
+        from repro_torch.core import telemetry as tele
+        from repro_torch.core.fl.async_fl import AsyncServer
+        fl = FLConfig(cohort_size=BUFFER, clip_norm=1.0, noise_multiplier=0.0,
+                      secure_agg_bits=bits, param_chunk_elems=CHUNK_ELEMS)
+        tel = tele.Telemetry(record_spans=True, fence=True)
+        srv = AsyncServer(self.params, fl, buffer_size=BUFFER,
+                          staleness_mode="constant", mask_mode=mode,
+                          telemetry=tel, device=DEVICE, **kw)
+        check(srv.plan.num_chunks == EXPECT_CHUNKS,
+              f"{srv.plan.num_chunks} chunks")
+        sessions = [list(range(BUFFER)), [0, 1, 2, 4, 5, 7]]
+        i = 0
+        for version, slots in enumerate(sessions):
+            for slot in slots:
+                d = self.delta(i)
+                i += 1
+                sync(torch)
+                if mode == "client":
+                    cp = srv.encode_push(d, version, slot=slot)
+                    check(srv.push_encoded(cp), "push_encoded refused")
+                else:
+                    check(srv.push(d, version, slot=slot), "push refused")
+                del d
+            if version == 1:
+                check(srv.flush(), "flush abstained")
+        check(srv.version == 2, f"server at version {srv.version}")
+        sync(torch)
+        spans = {}
+        for s in tel.spans:
+            key = s.name + ("/recovery" if s.labels.get("recovery") else "")
+            spans.setdefault(key, []).append(s.dur_ns / 1e6)
+        label = mode + ("" if kw.get("stream_encode", True) else "-batched")
+        self.timings[(label, bits)] = spans
+        params = srv.params
+        for k in ("weight_total", "update_norm"):
+            v = float(srv.last_metrics[k])
+            check(v == v and v > 0, f"{label}: bad metric {k}={v}")
+        del srv
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        return params
+
+
+def trees_equal(torch, a, b) -> bool:
+    from repro_torch import tree as T
+    return all(torch.equal(x, y) for x, y in zip(T.leaves(a), T.leaves(b)))
+
+
+def finite(torch, tree) -> bool:
+    from repro_torch import tree as T
+    return all(bool(torch.isfinite(x).all()) for x in T.leaves(tree))
+
+
+def main_path(torch, mp: MainPath) -> None:
+    from repro_torch import tree as T
+    plan_total = sum(int(p.numel()) for p in T.leaves(mp.params))
+    check(plan_total == EXPECT_PARAMS, f"{plan_total} parameters")
+    log(f"  {mp.cfg.name} widths, {NUM_LAYERS} of 28 layers: {plan_total:,} "
+        f"parameters; buffer {BUFFER}; chunks of <= {CHUNK_ELEMS:,}")
+    for bits in (32, 16):
+        t0 = time.perf_counter()
+        ref_stream = mp.run("off", bits)
+        check(finite(torch, ref_stream), "off: non-finite params")
+        moved = max(float((a - b).abs().max()) for a, b in
+                    zip(T.leaves(ref_stream), T.leaves(mp.params)))
+        check(moved > 0, "off: the parameters did not move")
+        for mode in ("client", "tee_stream"):
+            got = mp.run(mode, bits)
+            check(trees_equal(torch, got, ref_stream),
+                  f"{mode} (bits {bits}) != streamed off")
+            log(f"  bits {bits}: {mode} bit-equal to streamed off "
+                "(full session + recovered 6-of-8 flush)")
+            del got
+        del ref_stream
+        ref_batched = mp.run("off", bits, stream_encode=False)
+        got = mp.run("tee", bits)
+        check(trees_equal(torch, got, ref_batched),
+              f"tee (bits {bits}) != batched off")
+        log(f"  bits {bits}: tee bit-equal to stream_encode=False off "
+            "(full session + 6-of-8 flush)")
+        del got, ref_batched
+        log(f"  bits {bits}: {time.perf_counter() - t0:.1f} s")
+    for (label, bits), spans in sorted(mp.timings.items()):
+        parts = []
+        for key in ("encode_push", "push_encoded", "push", "decode",
+                    "decode/recovery"):
+            if key in spans:
+                parts.append(f"{key} median {statistics.median(spans[key]):.1f}"
+                             f" ms (n={len(spans[key])})")
+        # a full session: buffer x (median push-side ms) + its flush
+        push_ms = sum(statistics.median(spans[k]) for k in
+                      ("encode_push", "push_encoded", "push") if k in spans)
+        rate = BUFFER / ((BUFFER * push_ms + spans["decode"][0]) / 1e3)
+        log(f"  timing {label} bits {bits}: " + "; ".join(parts)
+            + f"; {rate:.1f} updates/s")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: kernel times at the main path's largest shape
+# ---------------------------------------------------------------------------
+def kernel_times(torch, counts) -> list:
+    from repro_torch.kernels import prf
+    from repro_torch.kernels import secure_agg as ksa
+    D = 151_936 * 1536  # the embedding chunk, the main path's largest
+    g = torch.Generator(device="cuda").manual_seed(2)
+    scale = ((2 ** 31 - 1) / BUFFER - 1.0) / 4.0
+    session = ksa.SessionMeta(key_words=(0x5A5E, 0xC401), num_slots=BUFFER)
+    nbrs = BUFFER - 1
+    out = []
+
+    x = torch.randn(D, generator=g, device="cuda") * DELTA_SCALE
+    run = lambda: ksa.quantize_mask_prf(x, scale, 3, (1, 2), session)  # noqa
+    got = run()
+    t0 = time.perf_counter()
+    want = ksa.quantize_mask_prf_plain(x, scale, 3, (1, 2), session)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(got, want), "quantize_mask_prf != plain at full width")
+    del want
+    ms = _cuda_ms(torch, run, 5)
+    evals = (1 + nbrs) * D / 2  # uniform + mask words, 2 words / Threefry
+    ops = evals * THREEFRY_OPS + D * (5 + nbrs)
+    nbytes = D * 4 + D * 4
+    out.append(_entry("quantize_mask_prf",
+                      "src/repro_torch/kernels/csrc/quantize_mask_prf.cu",
+                      "src/repro/kernels/secure_agg.py:203",
+                      counts["quantize_mask_prf"], ms, plain_ms, ops, nbytes))
+    del x, got
+    torch.cuda.empty_cache()
+
+    x = torch.randn(BUFFER, D, generator=g, device="cuda") * DELTA_SCALE
+    w = torch.ones(BUFFER, device="cuda")
+    u = prf.uniform_block(7, 8, BUFFER * D, device="cuda").reshape(BUFFER, D)
+    run = lambda: ksa.weighted_quantize_accum(  # noqa
+        x, w, u, scale, session=session)
+    got = run()
+    t0 = time.perf_counter()
+    want = ksa.weighted_quantize_accum_plain(x, w, u, scale, session=session)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(got, want),
+          "weighted_quantize_accum != plain at full width")
+    del want
+    ms = _cuda_ms(torch, run, 3)
+    plain_lane_ms = _cuda_ms(
+        torch, lambda: ksa.weighted_quantize_accum(x, w, u, scale), 3)
+    log(f"  weighted_quantize_accum unmasked lane ({BUFFER}x{D}): "
+        f"{plain_lane_ms:.3f} ms")
+    evals = BUFFER * nbrs * D / 2
+    ops = evals * THREEFRY_OPS + BUFFER * D * (5 + nbrs)
+    nbytes = 2 * BUFFER * D * 4 + BUFFER * 4 + D * 4
+    out.append(_entry("weighted_quantize_accum",
+                      "src/repro_torch/kernels/csrc/weighted_quantize_accum.cu",
+                      "src/repro/kernels/secure_agg.py:417",
+                      counts["weighted_quantize_accum"], ms, plain_ms, ops,
+                      nbytes))
+    for e in out:
+        log(f"  {e['name']}: {e['ms']:.3f} ms (bound {e['bound_ms']:.3f} ms "
+            f"by {e['bound_by']}; plain {e['plain_ms']:.1f} ms)")
+    return out
+
+
+def _entry(name, source, replaces, launches, ms, plain_ms, ops, nbytes):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": 0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        log("FAIL: torch.cuda.is_available() is false; this smoke run needs "
+            "a CUDA GPU")
+        return 2
+    if not (SRC / "repro_torch").is_dir():
+        log(f"FAIL: {SRC / 'repro_torch'} not found; run from a checkout of "
+            "the repository")
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import secure_agg as ksa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"{torch.cuda.get_device_name(0)}")
+
+    with Phase("phase 1: build + kernel parity"):
+        build_kernels()
+        kernel_parity(torch)
+
+    with Phase("phase 2: main path at full width"):
+        from repro_torch.configs import qwen2_1_5b
+        ksa.reset_counts()
+        mp = MainPath(torch, args.seed, qwen2_1_5b.CONFIG)
+        main_path(torch, mp)
+        counts = ksa.counts()
+
+    with Phase("phase 3: kernels on the main path"):
+        launches = {k: v["launches"] for k, v in counts.items()}
+        plain = {k: v["plain_calls"] for k, v in counts.items()}
+        log("  kernels: " + json.dumps({"launches": launches,
+                                         "plain_calls": plain}))
+        chunks, bits_runs, per_session = EXPECT_CHUNKS, 2, BUFFER + 6
+        masked_pushes = 2 * bits_runs * per_session  # client + tee_stream
+        batched_flushes = 2 * bits_runs * 2  # (tee + batched off) x sessions
+        check(launches["quantize_mask_prf"] == masked_pushes * chunks,
+              f"quantize_mask_prf launched {launches['quantize_mask_prf']}"
+              f" times, want {masked_pushes * chunks}")
+        check(launches["weighted_quantize_accum"]
+              == batched_flushes * chunks,
+              f"weighted_quantize_accum launched "
+              f"{launches['weighted_quantize_accum']} times, want "
+              f"{batched_flushes * chunks}")
+        check(all(v == 0 for v in plain.values()),
+              f"plain versions ran on the CUDA path: {plain}")
+
+    with Phase("phase 4: device and kernel times"):
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()
+        entries = kernel_times(torch, launches)
+
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,531 @@
+"""The aggregation engine of the buffered-async server (port).
+
+Port of the ``repro.core.fl.aggregation`` functions that ``AsyncServer``
+runs: the static :class:`AggregationSpec`, the pytree-native
+:class:`ParamPlan` (model leaves grouped into flat chunks, each chunk its own
+mask session and its own slice of the model-wide stochastic-rounding
+stream), the streamed per-arrival encode (``encode_plan_flat``) with its
+modular-sum flush (``aggregate_plan_masked_buffer``), and the batched flush
+(``aggregate_plan_buffer``).
+
+The two fused kernels of that path are called unconditionally —
+``kernels.secure_agg.quantize_mask_prf`` for every masked streamed push and
+``weighted_quantize_accum`` for every batched flush — and the tensor's
+device picks the implementation (plain PyTorch on the CPU, the Hopper kernel
+on the card).  The streamed unmasked encode is plain PyTorch, as in the JAX
+package.
+
+Bit-exactness with the JAX package holds for every integer and every float
+op here except two reductions: the whole-model squared norm is summed in
+another order, and (with noise on) Gaussian draws come from torch
+generators.  While no row is clipped the clip scale is exactly 1.0 and the
+engines agree bit for bit.  Scalar divisions use 0-dim tensors on the data's
+device (a CUDA division by a Python scalar is a multiply by its
+reciprocal), except where the reference divides by a compile-time constant
+inside ``jit``: XLA compiles that as a multiply by the f32 reciprocal, and
+the port's decode does the same.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch import tree as T
+from repro_torch.core.fl import compression as comp
+from repro_torch.core.fl import dp
+from repro_torch.core.fl import secure_agg as sa
+from repro_torch.kernels import prf
+from repro_torch.kernels import secure_agg as ksa
+
+
+class AggregationSpec(NamedTuple):
+    """Static description of one aggregation (see the JAX module)."""
+
+    num_contributors: int
+    clip_norm: float
+    use_secure_agg: bool
+    sa_scale: float
+    dev_noise: float
+    tee_noise: float
+    mask_degree: int = 0
+    random_graph: bool = False
+    field_modulus: int = 1 << 32
+    compression: comp.CompressionSpec = comp.CompressionSpec()
+
+
+def fixed_point_scale(fl_cfg, num_contributors: int) -> float:
+    """Fixed-point scale such that a full-aggregate sum cannot wrap int32."""
+    levels = (2 ** (fl_cfg.secure_agg_bits - 1) - 1) / num_contributors - 1.0
+    return max(levels, 1.0) / fl_cfg.secure_agg_range
+
+
+def make_spec(fl_cfg, num_contributors: int) -> AggregationSpec:
+    use_sa = fl_cfg.secure_agg_bits > 0
+    degree = sa.effective_degree(
+        num_contributors, getattr(fl_cfg, "secure_agg_degree", 0))
+    return AggregationSpec(
+        num_contributors=num_contributors,
+        clip_norm=fl_cfg.clip_norm,
+        use_secure_agg=use_sa,
+        sa_scale=fixed_point_scale(fl_cfg, num_contributors) if use_sa else 1.0,
+        dev_noise=dp.noise_stddev(fl_cfg, num_contributors, "device")
+        if fl_cfg.noise_placement == "device" else 0.0,
+        tee_noise=dp.noise_stddev(fl_cfg, num_contributors, "tee")
+        if fl_cfg.noise_placement == "tee" else 0.0,
+        mask_degree=degree,
+        random_graph=(degree > 0
+                      and not getattr(fl_cfg, "secure_agg_circulant", False)),
+        field_modulus=sa.field_modulus(fl_cfg.secure_agg_bits,
+                                       num_contributors)
+        if use_sa else 1 << 32,
+        compression=comp.CompressionSpec(
+            mode=getattr(fl_cfg, "compress_mode", "none"),
+            rate=getattr(fl_cfg, "compress_rate", 1.0)),
+    )
+
+
+def require_identity_compression(spec: AggregationSpec) -> None:
+    if not spec.compression.identity:
+        raise NotImplementedError(
+            f"upload compression ({spec.compression.describe()}) is not "
+            "ported yet; the port runs the uncompressed wire only")
+
+
+def make_mask_session(spec: AggregationSpec, key, *,
+                      num_slots: Optional[int] = None,
+                      slot_offset: int = 0) -> Optional[sa.MaskSession]:
+    """The :class:`secure_agg.MaskSession` of one aggregation, or None."""
+    if key is None:
+        return None
+    n = spec.num_contributors if num_slots is None else num_slots
+    return sa.make_session(key, n, degree=spec.mask_degree,
+                           random_graph=spec.random_graph,
+                           slot_offset=slot_offset,
+                           modulus=spec.field_modulus)
+
+
+def kernel_session(session: sa.MaskSession, device=None) -> ksa.SessionMeta:
+    """The kernels' ``SessionMeta`` view of a protocol-layer session."""
+    return ksa.SessionMeta(
+        key_words=session.key_words(), num_slots=session.num_slots,
+        degree=session.degree, slot_offset=session.slot_offset,
+        neighbors=session.neighbor_table(device=device))
+
+
+def _scalar(v, device) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def clip_scales(nrm: torch.Tensor, clip_norm: float) -> torch.Tensor:
+    """``min(1, clip_norm / max(nrm, 1e-12))`` in f32, elementwise."""
+    return torch.clamp(_scalar(clip_norm, nrm.device)
+                       / torch.clamp(nrm, min=1e-12), max=1.0)
+
+
+def sum_rows(rows: torch.Tensor, gate: Optional[Sequence[bool]] = None
+             ) -> torch.Tensor:
+    """Modular (mod 2^32) sum of int32 rows, optionally gated -> int32.
+
+    Accumulated row by row in int64, so a (B, D) buffer never gets a
+    (B, D) int64 copy."""
+    acc = torch.zeros(rows.shape[1:], dtype=torch.int64, device=rows.device)
+    for b in range(rows.shape[0]):
+        if gate is None or gate[b]:
+            acc += rows[b]
+    return prf.to_int32(acc)
+
+
+# ---------------------------------------------------------------------------
+# ParamPlan — the pytree-native chunk layout
+# ---------------------------------------------------------------------------
+CHUNK_SESSION_TAG = 0xC401
+DEFAULT_CHUNK_BLOCK = 512
+
+
+class ChunkSpec(NamedTuple):
+    """One flat chunk of a :class:`ParamPlan` — consecutive WHOLE leaves."""
+
+    leaf_lo: int
+    leaf_hi: int
+    size: int
+    padded: int
+    offset: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamPlan:
+    """Static layout of a model tree over flat aggregation chunks.
+
+    ``paths`` are the leaf paths in JAX's flatten order (sorted dict keys);
+    see the JAX class for the contract.
+    """
+
+    paths: Tuple[Tuple[str, ...], ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[str, ...]
+    chunks: Tuple[ChunkSpec, ...]
+
+    @property
+    def num_chunks(self) -> int:
+        return len(self.chunks)
+
+    @property
+    def total(self) -> int:
+        return sum(c.size for c in self.chunks)
+
+    @property
+    def leaf_sizes(self) -> Tuple[int, ...]:
+        return tuple(math.prod(s) for s in self.shapes)
+
+    def leaves_of(self, tree) -> list:
+        """Flatten ``tree`` and check it has the plan's structure."""
+        paths, leaves = T.flatten(tree)
+        if tuple(paths) != self.paths:
+            raise ValueError(
+                f"tree structure does not match the ParamPlan: got "
+                f"{paths}, plan was built for {list(self.paths)}")
+        return leaves
+
+    def chunk_arrays(self, tree, *, leading: int = 0,
+                     pad: bool = False) -> Tuple[torch.Tensor, ...]:
+        """``tree`` -> tuple of per-chunk flat f32 tensors."""
+        leaves = self.leaves_of(tree)
+        out = []
+        for ck in self.chunks:
+            segs = [leaves[i].reshape(tuple(leaves[i].shape[:leading]) + (-1,))
+                    .to(torch.float32) for i in range(ck.leaf_lo, ck.leaf_hi)]
+            arr = segs[0] if len(segs) == 1 else torch.cat(segs, dim=-1)
+            if pad and ck.padded > ck.size:
+                arr = torch.nn.functional.pad(arr, (0, ck.padded - ck.size))
+            out.append(arr)
+        return tuple(out)
+
+    def unchunk(self, chunk_arrays: Sequence[torch.Tensor]):
+        """Per-chunk flat tensors (padded or not) -> the model tree."""
+        sizes = self.leaf_sizes
+        leaves = []
+        for ck, arr in zip(self.chunks, chunk_arrays):
+            off = 0
+            for i in range(ck.leaf_lo, ck.leaf_hi):
+                leaves.append(arr[off:off + sizes[i]].reshape(self.shapes[i]))
+                off += sizes[i]
+        return T.unflatten(self.paths, leaves)
+
+    def session_keys(self, key) -> Tuple:
+        """Per-chunk mask-session keys (single chunk: the key verbatim)."""
+        if self.num_chunks == 1:
+            return (prf.key_words(key),)
+        base = prf.fold_in(key, CHUNK_SESSION_TAG)
+        return tuple(prf.fold_in(base, c) for c in range(self.num_chunks))
+
+    def chunk_noise_key(self, rng, c: int):
+        k = prf.fold_in(rng, 1)
+        return k if self.num_chunks == 1 else prf.fold_in(k, c)
+
+
+def make_param_plan(params, *, chunk_elems: int = 0,
+                    block: int = DEFAULT_CHUNK_BLOCK) -> ParamPlan:
+    """Build the chunk layout of a model tree (greedy whole-leaf groups)."""
+    paths, leaves = T.flatten(params)
+    if not leaves:
+        raise ValueError("cannot build a ParamPlan for an empty tree")
+    shapes = tuple(tuple(int(d) for d in x.shape) for x in leaves)
+    dtypes = tuple(str(x.dtype).replace("torch.", "") for x in leaves)
+    sizes = [math.prod(s) for s in shapes]
+    if chunk_elems <= 0:
+        groups = [(0, len(leaves))]
+    else:
+        groups, lo, cur = [], 0, 0
+        for i, sz in enumerate(sizes):
+            if cur > 0 and cur + sz > chunk_elems:
+                groups.append((lo, i))
+                lo, cur = i, 0
+            cur += sz
+        groups.append((lo, len(leaves)))
+    multi = len(groups) > 1
+    chunks, off = [], 0
+    for (g_lo, g_hi) in groups:
+        size = sum(sizes[g_lo:g_hi])
+        padded = -(-size // block) * block if multi else size
+        chunks.append(ChunkSpec(g_lo, g_hi, size, padded, off))
+        off += size
+    return ParamPlan(paths=tuple(paths), shapes=shapes, dtypes=dtypes,
+                     chunks=tuple(chunks))
+
+
+def plan_for(params, fl_cfg) -> ParamPlan:
+    return make_param_plan(
+        params, chunk_elems=getattr(fl_cfg, "param_chunk_elems", 0))
+
+
+def plan_sq_norms(plan: ParamPlan,
+                  chunk_arrays: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Whole-model squared L2 norms: the left fold over leaf segments.
+
+    Arrays may carry one leading batch axis; each row is summed on its own
+    (so a batched row and a streamed row of the same delta fold the same
+    way, and no (B, D) temporary is formed).
+    """
+    sizes = plan.leaf_sizes
+    first = chunk_arrays[0]
+    lead = tuple(first.shape[:-1])
+    sq = torch.zeros(lead, dtype=torch.float32, device=first.device)
+    for ck, arr in zip(plan.chunks, chunk_arrays):
+        x = arr.to(torch.float32)
+        off = 0
+        for i in range(ck.leaf_lo, ck.leaf_hi):
+            seg = x[..., off:off + sizes[i]]
+            if lead:
+                part = torch.stack([torch.sum(r * r) for r in seg])
+            else:
+                part = torch.sum(seg * seg)
+            sq = sq + part
+            off += sizes[i]
+    return sq
+
+
+def plan_sessions(spec: AggregationSpec, plan: ParamPlan, key, *,
+                  num_slots: Optional[int] = None, slot_offset: int = 0):
+    """One :class:`secure_agg.MaskSession` per chunk (or None if no key)."""
+    if key is None:
+        return None
+    return tuple(make_mask_session(spec, k, num_slots=num_slots,
+                                   slot_offset=slot_offset)
+                 for k in plan.session_keys(key))
+
+
+def plan_wire_chunks(spec: AggregationSpec, plan: ParamPlan):
+    return comp.wire_chunks(spec.compression, plan.chunks)
+
+
+# ---------------------------------------------------------------------------
+# Streamed per-arrival encode and its flush
+# ---------------------------------------------------------------------------
+def encode_plan_flat(xs: Sequence[torch.Tensor], weight, slot: int,
+                     spec: AggregationSpec, plan: ParamPlan, sessions, rng, *,
+                     masked: bool = True):
+    """The streamed per-arrival encode on pre-chunked flat tensors.
+
+    One GLOBAL clip scale from the whole-model norm, the
+    ``fold_in(rng, 2)`` TAG_UNIFORM stream at each chunk's global offset,
+    and (``masked``) each chunk's pairwise mask under its own session —
+    fused in ``kernels.secure_agg.quantize_mask_prf``.  Returns (tuple of
+    PADDED (padded_c,) int32 rows, pre-clip norm, was_clipped).
+    """
+    require_identity_compression(spec)
+    dev = xs[0].device
+    nrm = torch.sqrt(plan_sq_norms(plan, xs))
+    clip_scale = clip_scales(nrm, spec.clip_norm)
+    weight = torch.as_tensor(weight, dtype=torch.float32, device=dev)
+    u_words = prf.fold_in(rng, 2)
+    rows = []
+    for c, (ck, x) in enumerate(zip(plan.chunks, xs)):
+        xw = x * (weight * clip_scale)
+        if spec.dev_noise > 0.0:
+            g = dp.generator(plan.chunk_noise_key(rng, c), dev)
+            noise = torch.randn(x.shape, generator=g, dtype=torch.float32,
+                                device=dev)
+            xw = xw + noise * (spec.dev_noise * weight)
+        if masked:
+            row = ksa.quantize_mask_prf(
+                xw, spec.sa_scale, slot, u_words,
+                kernel_session(sessions[c], dev), u_offset=ck.offset)
+        else:
+            u = prf.uniform_block(*u_words, ck.size, offset=ck.offset,
+                                  device=dev)
+            row = ksa.stochastic_round(xw * spec.sa_scale, u)
+        if ck.padded > ck.size:
+            row = torch.nn.functional.pad(row, (0, ck.padded - ck.size))
+        rows.append(row)
+    return tuple(rows), nrm, (clip_scale < 1.0).to(torch.float32)
+
+
+def encode_plan_contribution(delta, weight, slot: int, spec: AggregationSpec,
+                             plan: ParamPlan, sessions, rng, *,
+                             masked: bool = True):
+    """Tree form of :func:`encode_plan_flat` — the client-side encode."""
+    return encode_plan_flat(plan.chunk_arrays(delta), weight, slot, spec,
+                            plan, sessions, rng, masked=masked)
+
+
+def aggregate_plan_masked_buffer(bufs: Sequence[torch.Tensor], present,
+                                 total_weight, spec: AggregationSpec,
+                                 plan: ParamPlan, sessions, rng, *,
+                                 recover: bool = True, masked: bool = True):
+    """Modular sum of the streamed int32 rows + dropout recovery + decode.
+
+    ``present`` is host metadata (one flag per slot).  With ``recover``,
+    absent rows are gated out and (``masked``) each chunk's recovery sweep
+    re-adds the absent slots' mask shares; without it the session is known
+    complete and the masks cancel in the plain sum.
+    """
+    require_identity_compression(spec)
+    pres = sa.present_flags(present)
+    wire = plan_wire_chunks(spec, plan)
+    accs = []
+    for c, (wc, mbuf) in enumerate(zip(wire, bufs)):
+        if recover:
+            acc = sum_rows(mbuf, [p == 1 for p in pres])
+            if masked:
+                rec = sessions[c].recovery((wc.size,), pres,
+                                           device=mbuf.device)
+                if wc.padded > wc.size:
+                    rec = torch.nn.functional.pad(rec, (0, wc.padded - wc.size))
+                acc = prf.to_int32(prf.words_of(acc) + prf.words_of(rec))
+        else:
+            acc = sum_rows(mbuf)
+        accs.append(acc)
+    return finalize_plan_aggregate(accs, total_weight, spec, plan,
+                                   prf.fold_in(rng, 0xDEE))
+
+
+# ---------------------------------------------------------------------------
+# Batched flush (mask_mode "tee" and the unstreamed "off" engine)
+# ---------------------------------------------------------------------------
+def row_uniform_keys(rng, B: int):
+    """Per-row key words of the batched TAG_UNIFORM stream: one Threefry of
+    the row index under ``fold_in(rng, 2)``."""
+    u0, u1 = prf.fold_in(rng, 2)
+    return prf.threefry2x32(u0, u1, torch.arange(B, dtype=torch.int64), 0)
+
+
+def plan_buffer_noise_and_uniforms(rng, B: int, spec: AggregationSpec,
+                                   plan: ParamPlan, device=None):
+    """Per-chunk tuples of the batched flush's stochastic draws.
+
+    Uniforms: the per-row counter streams at each chunk's global offset
+    (bit-identical to the JAX draw).  Device noise: chunk-keyed torch
+    generators (equal law, other numbers).
+    """
+    noise = None
+    if spec.dev_noise > 0.0:
+        noise = []
+        for c, ck in enumerate(plan.chunks):
+            g = dp.generator(plan.chunk_noise_key(rng, c), device)
+            n = torch.randn((B, ck.size), generator=g, dtype=torch.float32,
+                            device=device)
+            if ck.padded > ck.size:
+                n = torch.nn.functional.pad(n, (0, ck.padded - ck.size))
+            noise.append(n)
+        noise = tuple(noise)
+    uniforms = None
+    if spec.use_secure_agg:
+        r0, r1 = row_uniform_keys(rng, B)
+        uniforms = tuple(prf.uniform_block(r0, r1, ck.padded,
+                                           offset=ck.offset, device=device)
+                         for ck in plan.chunks)
+    return noise, uniforms
+
+
+def encode_and_sum_rows(buf: torch.Tensor, weights: torch.Tensor, uniforms,
+                        noise, spec: AggregationSpec, *,
+                        session: Optional[sa.MaskSession] = None,
+                        row_sq: Optional[torch.Tensor] = None):
+    """Clip/weight/[noise]/encode[+mask] a block of rows and modular-sum it.
+
+    The secure-agg lane is ``kernels.secure_agg.weighted_quantize_accum``
+    (with the session's in-kernel PRF masks when ``session`` is given).
+    Returns (acc (D,) int32|f32, pre-clip norms (B,), was_clipped (B,)).
+    """
+    if session is not None and not spec.use_secure_agg:
+        raise ValueError("pairwise masks require the secure-agg integer field "
+                         "(spec.use_secure_agg)")
+    B, D = buf.shape
+    if row_sq is None:
+        row_sq = torch.stack([torch.sum(r.float() * r.float()) for r in buf])
+    nrm = torch.sqrt(row_sq)
+    clip_scale = clip_scales(nrm, spec.clip_norm)
+    was_clipped = (clip_scale < 1.0).to(torch.float32)
+    row_w = weights * clip_scale
+    if spec.use_secure_agg:
+        if noise is None:
+            qx, qw = buf.to(torch.float32), row_w
+        else:
+            qx = buf.to(torch.float32) * row_w[:, None] + noise
+            qw = torch.ones((B,), dtype=torch.float32, device=buf.device)
+        acc = ksa.weighted_quantize_accum(
+            qx.contiguous(), qw.contiguous(), uniforms, spec.sa_scale,
+            session=None if session is None
+            else kernel_session(session, buf.device))
+    else:
+        x = buf.to(torch.float32) * row_w[:, None]
+        if noise is not None:
+            x = x + noise
+        acc = x.sum(0)
+    return acc, nrm, was_clipped
+
+
+def encode_plan_rows(bufs: Sequence[torch.Tensor], weights: torch.Tensor,
+                     uniforms, noise, spec: AggregationSpec, plan: ParamPlan,
+                     *, sessions=None, row_sq=None):
+    """Per-chunk :func:`encode_and_sum_rows`, every chunk clipped by the
+    whole-model row norms.  Returns (per-chunk accumulators, norms (B,),
+    was_clipped (B,))."""
+    if row_sq is None:
+        row_sq = plan_sq_norms(plan, bufs)
+    accs, nrm, was_clipped = [], None, None
+    for c in range(plan.num_chunks):
+        acc, nrm, was_clipped = encode_and_sum_rows(
+            bufs[c], weights, None if uniforms is None else uniforms[c],
+            None if noise is None else noise[c], spec,
+            session=None if sessions is None else sessions[c], row_sq=row_sq)
+        accs.append(acc)
+    return tuple(accs), nrm, was_clipped
+
+
+def aggregate_plan_buffer(bufs: Sequence[torch.Tensor], weights: torch.Tensor,
+                          spec: AggregationSpec, plan: ParamPlan, rng, *,
+                          sessions=None):
+    """The batched tee/off flush over per-chunk (B, padded_c) f32 buffers.
+
+    Returns (mean tree, stats)."""
+    require_identity_compression(spec)
+    B = bufs[0].shape[0]
+    noise, uniforms = plan_buffer_noise_and_uniforms(rng, B, spec, plan,
+                                                     bufs[0].device)
+    if noise is not None:
+        noise = tuple(n * (spec.dev_noise * weights)[:, None] for n in noise)
+    accs, nrm, was_clipped = encode_plan_rows(
+        bufs, weights, uniforms, noise, spec, plan, sessions=sessions)
+    del uniforms, noise
+    w_total = weights.sum()
+    mean = finalize_plan_aggregate(accs, w_total, spec, plan,
+                                   prf.fold_in(rng, 0xDEE))
+    denom = torch.clamp(w_total, min=1e-9)
+    stats = {
+        "update_norm": (nrm * weights).sum() / denom,
+        "clip_fraction": (was_clipped * weights).sum() / denom,
+        "weight_total": w_total,
+    }
+    return mean, stats
+
+
+def finalize_plan_aggregate(accs: Sequence[torch.Tensor], total_weight,
+                            spec: AggregationSpec, plan: ParamPlan, rng):
+    """Decode, divide by the total weight, reassemble the tree, TEE noise.
+
+    The decode multiplies by the f32 reciprocal of the fixed-point scale:
+    the JAX engine divides by that compile-time constant inside ``jit``,
+    and XLA compiles such a division as a multiply by the f32-rounded
+    reciprocal, whose results differ from a true division for most scales.
+    """
+    dev = accs[0].device
+    w = torch.clamp(torch.as_tensor(total_weight, dtype=torch.float32,
+                                    device=dev), min=1e-9)
+    inv_scale = _scalar(1.0, dev) / _scalar(spec.sa_scale, dev)
+    flats = []
+    for ck, acc in zip(plan.chunks, accs):
+        a = acc[:ck.size]
+        if spec.use_secure_agg:
+            a = sa.recenter(a, spec.field_modulus).to(torch.float32) \
+                * inv_scale
+        flats.append(a / w)
+    mean = plan.unchunk(flats)
+    if spec.tee_noise > 0.0:
+        mean = dp.add_noise(mean, rng,
+                            spec.tee_noise * spec.num_contributors
+                            / float(w))
+    return mean

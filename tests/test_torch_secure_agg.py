@@ -1,0 +1,121 @@
+"""The port's secure-agg field codec, mask graphs, session masks and dropout
+recovery against the JAX package (``repro.core.fl.secure_agg``).
+
+All bit-equal.  The random k-regular graph case builds the port's session
+from the reference's own permutation (the port does not draw
+``session_perm`` yet, and says so by raising).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.fl import secure_agg as jsa
+from repro_torch.core.fl import secure_agg as sa
+from repro_torch.kernels import prf
+
+KEY = jax.random.PRNGKey(0x5A5E)
+KW = tuple(int(w) for w in np.asarray(jax.random.key_data(KEY)))
+
+
+@pytest.mark.parametrize("modulus", [2 ** b for b in range(1, 33)])
+def test_codec_matches_reference_all_widths(modulus):
+    rs = np.random.RandomState(modulus % 1000)
+    q = rs.randint(-2 ** 31, 2 ** 31, size=(2, 77), dtype=np.int64).astype(
+        np.int32)
+    tq = torch.from_numpy(q)
+    assert sa.wire_bits(modulus) == jsa.wire_bits(modulus)
+    assert sa.packed_words(77, modulus) == jsa.packed_words(77, modulus)
+    res = sa.to_field(tq, modulus)
+    np.testing.assert_array_equal(np.asarray(jsa.to_field(jnp.asarray(q),
+                                                          modulus)),
+                                  res.numpy())
+    words = sa.pack_residues(res, modulus)
+    want = np.asarray(jsa.pack_residues(jnp.asarray(res.numpy()), modulus))
+    np.testing.assert_array_equal(want.view(np.int32), words.numpy())
+    back = sa.unpack_residues(words, 77, modulus)
+    np.testing.assert_array_equal(res.numpy(), back.numpy())
+    np.testing.assert_array_equal(
+        np.asarray(jsa.recenter(jnp.asarray(q), modulus)),
+        sa.recenter(tq, modulus).numpy())
+    with pytest.raises(ValueError):
+        sa.unpack_residues(words[..., :-1], 77, modulus)
+
+
+def test_field_modulus_and_degree_rules():
+    for bits in (1, 8, 16, 31, 32):
+        for count in (1, 3, 8, 1000):
+            assert sa.field_modulus(bits, count) == jsa.field_modulus(
+                bits, count)
+    for n, k in ((8, 0), (8, 4), (8, 7), (3, 2), (12, 6)):
+        assert sa.effective_degree(n, k) == jsa.effective_degree(n, k)
+    with pytest.raises(ValueError):
+        sa.effective_degree(10, 3)
+
+
+@pytest.mark.parametrize("n,degree,random", [(6, 0, False), (9, 4, False),
+                                             (10, 4, True)])
+def test_graph_masks_and_recovery_match_reference(n, degree, random):
+    D = 203
+    perm = np.asarray(jsa.session_perm(n, KEY)) if random else None
+    tperm = None if perm is None else torch.tensor(perm)
+    jsess = jsa.MaskSession(key=KEY, num_slots=n,
+                            degree=jsa.effective_degree(n, degree),
+                            perm=None if perm is None else jnp.asarray(perm))
+    sess = sa.MaskSession(key=KW, num_slots=n,
+                          degree=sa.effective_degree(n, degree), perm=tperm)
+    # graph
+    jt = jsess.neighbor_table()
+    tt = sess.neighbor_table()
+    assert (jt is None) == (tt is None)
+    if jt is not None:
+        np.testing.assert_array_equal(np.asarray(jt), tt.numpy())
+    jlo, jhi = jsess.edges()
+    lo, hi = sess.edges()
+    assert list(np.asarray(jlo)) == lo and list(np.asarray(jhi)) == hi
+    # masks, all slots at once and one slot at a time; they cancel
+    want = np.asarray(jsess.masks((D,)))
+    masks = sess.masks((D,))
+    np.testing.assert_array_equal(want, masks.numpy())
+    for slot in (0, n - 1):
+        np.testing.assert_array_equal(want[slot],
+                                      sess.mask((D,), slot).numpy())
+    total = masks.to(torch.int64).sum(0) % 2 ** 32
+    assert int(total.abs().max()) == 0
+    # dropout recovery: survivors' masks + recovery shares cancel
+    present = np.ones(n, np.int32)
+    present[[1, n - 2]] = 0
+    rec = sess.recovery((D,), present.tolist())
+    np.testing.assert_array_equal(
+        np.asarray(jsess.recovery((D,), jnp.asarray(present))), rec.numpy())
+    alive = masks[torch.from_numpy(present.astype(bool))]
+    left = (alive.to(torch.int64).sum(0) + rec.to(torch.int64)) % 2 ** 32
+    assert int(left.abs().max()) == 0
+
+
+def test_recovery_sweep_is_tiled_and_reduce_expand_round_trip(monkeypatch):
+    n, D = 8, 1000
+    sess = sa.make_session(KW, n, modulus=sa.field_modulus(16, n))
+    jsess = jsa.make_session(KEY, n, modulus=jsa.field_modulus(16, n))
+    present = [1, 0, 1, 1, 0, 1, 1, 1]
+    want = np.asarray(jsess.recovery((D,), jnp.asarray(present)))
+    monkeypatch.setattr(prf, "TILE", 96)
+    np.testing.assert_array_equal(want, sess.recovery((D,), present).numpy())
+    q = sess.mask((D,), 3)
+    words = sess.reduce(q)
+    np.testing.assert_array_equal(
+        np.asarray(jsess.reduce(jnp.asarray(q.numpy()))).view(np.int32),
+        words.numpy())
+    assert words.numel() == sa.packed_words(D, sess.modulus)
+    back = sess.expand(words, D)
+    np.testing.assert_array_equal(sa.to_field(q, sess.modulus).numpy(),
+                                  back.numpy())
+
+
+def test_random_graph_session_is_not_drawn_yet():
+    with pytest.raises(NotImplementedError):
+        sa.make_session(KW, 10, degree=4, random_graph=True)
+    # circulant and complete sessions are fine
+    assert sa.make_session(KW, 10, degree=4).degree == 4
+    assert sa.make_session(KW, 4, degree=4).degree == 0
