@@ -5,11 +5,12 @@
 
 Phases (each prints its seconds):
 
-  1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and hold
-     each against its plain PyTorch version on the card (bit-equal ints):
-     ragged widths, complete / circulant / table mask graphs,
-     ``slot_offset`` shards, rows beyond the session, a nonzero uniform
-     offset, and the main path's own shapes;
+  1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+     ``nvcc`` per source, all at once) and hold each against its plain
+     PyTorch version on the card (bit-equal ints): ragged widths, complete /
+     circulant / table mask graphs, ``slot_offset`` shards, rows beyond the
+     session, nonzero uniform offsets, several fixed-point scales, every
+     packed width 1..32 in both directions, and the main path's own shapes;
   2. the main path: the buffered-async aggregation server (``AsyncServer``)
      on qwen2-1.5b's published widths, depth cut from 28 to 2 layers
      (326,970,880 parameters, 1.31 GB f32 per delta), ``buffer_size=8``,
@@ -20,7 +21,15 @@ Phases (each prints its seconds):
      unmasked counterpart on the same deltas and keys: ``client``
      (encode_push/push_encoded) and ``tee_stream`` against the streamed
      ``off`` engine, batched ``tee`` against ``stream_encode=False`` ``off``;
-  3. the kernel launch counts of that run (and zero plain-version calls);
+  2b. the compressed path on the same model: ``compress_mode="sketch"`` at
+     ``compress_rate=0.2`` (m = 46,674,740 wire coordinates at the embedding
+     chunk), ``client`` and ``tee_stream`` bit-equal to compressed streamed
+     ``off`` at bits 32 and 16 through a full and a 6-of-8 session; one
+     ``subsample`` run (``client``, bits 16, against its ``off`` twin); one
+     ``tee_stream`` run with ``enclave_wire_bits=8`` (finite, moved, enclave
+     bytes < 0.3 of the raw wire); wire bytes per contribution of each;
+  3. the exact kernel launch counts of each path (and zero plain-version
+     calls);
   4. the card's name and power limit, each kernel's time at the main path's
      largest shape beside its bound and its plain version's time.
 
@@ -57,6 +66,8 @@ CHUNK_ELEMS = 1 << 25
 EXPECT_CHUNKS = 5
 EXPECT_PARAMS = 326_970_880
 DELTA_SCALE = 2e-5  # per-element std: a delta's L2 norm is ~0.36 < clip 1.0
+SKETCH_RATE = 0.2  # the builders' rate in results/compression_tradeoff.csv
+EMBED = 151_936 * 1536  # the embedding chunk, the main path's largest
 
 
 def log(msg: str) -> None:
@@ -158,6 +169,38 @@ def kernel_parity(torch) -> None:
             n += 1
     log(f"  weighted_quantize_accum: {n} cases bit-equal to the plain "
         "version")
+    n = 0
+    for D in (1, 511, 512, 4097, (1 << 20) + 3):
+        x = torch.randn(D, generator=g, device="cuda") * 1e-3
+        for sc, u_off in ((scale, 0), (131067.5, 4097), (3333.25, 1 << 30)):
+            okw = (0x1234 + D, 0xCB01)
+            got = ksa.rotate_quantize_prf(x, sc, okw, (5, 6), u_offset=u_off)
+            want = ksa.rotate_quantize_prf_plain(x, sc, okw, (5, 6),
+                                                 u_offset=u_off)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"rotate_quantize_prf != plain (D={D}, scale={sc}, "
+                  f"u_offset={u_off})")
+            n += 1
+    log(f"  rotate_quantize_prf: {n} cases bit-equal to the plain version")
+    n = 0
+    for bits in range(1, 33):
+        for D in (1, 33, 1000, 100_003):
+            q = torch.randint(0, 2 ** bits, (D,), generator=g, device="cuda",
+                              dtype=torch.int64).to(torch.int32)
+            words = ksa.pack_residues(q, bits)
+            check(torch.equal(words, ksa.pack_residues_plain(q, bits)),
+                  f"pack_residues != plain (bits={bits}, D={D})")
+            back = ksa.unpack_residues(words, D, bits)
+            check(torch.equal(back, ksa.unpack_residues_plain(words, D,
+                                                              bits)),
+                  f"unpack_residues != plain (bits={bits}, D={D})")
+            torch.cuda.synchronize()
+            check(torch.equal(back, q),
+                  f"pack/unpack round trip (bits={bits}, D={D})")
+            n += 1
+    log(f"  pack_residues/unpack_residues: {n} cases bit-equal to the plain "
+        "versions and round-tripped")
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +228,8 @@ class MainPath:
         g = torch.Generator(device=DEVICE).manual_seed(seed)
         self.params = init_params(self.cfg, g, device=DEVICE)
         self.timings = {}
+        self.wire = {}
+        self.lanes = {}
 
     def delta(self, i: int):
         from repro_torch import tree as T
@@ -194,15 +239,17 @@ class MainPath:
             lambda p: self.torch.randn(p.shape, generator=g, device=DEVICE)
             * DELTA_SCALE, self.params)
 
-    def run(self, mode: str, bits: int, **kw):
+    def run(self, mode: str, bits: int, fl_kw=None, tag: str = "", **kw):
         """Session 0: 8 pushes (auto-apply).  Session 1: slots 3 and 6 drop
-        out, ``flush()`` recovers.  Returns the final parameters."""
+        out, ``flush()`` recovers.  ``fl_kw`` adds FLConfig fields (the
+        compressed and enclave runs).  Returns the final parameters."""
         torch = self.torch
         from repro_torch.configs.base import FLConfig
         from repro_torch.core import telemetry as tele
         from repro_torch.core.fl.async_fl import AsyncServer
         fl = FLConfig(cohort_size=BUFFER, clip_norm=1.0, noise_multiplier=0.0,
-                      secure_agg_bits=bits, param_chunk_elems=CHUNK_ELEMS)
+                      secure_agg_bits=bits, param_chunk_elems=CHUNK_ELEMS,
+                      **(fl_kw or {}))
         tel = tele.Telemetry(record_spans=True, fence=True)
         srv = AsyncServer(self.params, fl, buffer_size=BUFFER,
                           staleness_mode="constant", mask_mode=mode,
@@ -231,7 +278,13 @@ class MainPath:
             key = s.name + ("/recovery" if s.labels.get("recovery") else "")
             spans.setdefault(key, []).append(s.dur_ns / 1e6)
         label = mode + ("" if kw.get("stream_encode", True) else "-batched")
+        label += tag
         self.timings[(label, bits)] = spans
+        self.wire[(label, bits)] = wire_bytes(srv)
+        self.lanes[(label, bits)] = {
+            lane: sum(v for (n, lk), v in tel.counters().items()
+                      if n == "upload_bytes" and ("lane", lane) in lk)
+            for lane in ("packed", "compressed", "enclave")}
         params = srv.params
         for k in ("weight_total", "update_norm"):
             v = float(srv.last_metrics[k])
@@ -240,6 +293,16 @@ class MainPath:
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
         return params
+
+
+def wire_bytes(srv) -> int:
+    """Bytes one contribution's streamed row takes on the (packed) wire."""
+    from repro_torch.core.fl import aggregation as agg
+    from repro_torch.core.fl import secure_agg as sa
+    if not srv._streaming:
+        return 4 * srv.plan.total  # the raw f32 delta
+    return 4 * sum(sa.packed_words(wc.padded, srv._spec.field_modulus)
+                   for wc in agg.plan_wire_chunks(srv._spec, srv.plan))
 
 
 def trees_equal(torch, a, b) -> bool:
@@ -281,6 +344,10 @@ def main_path(torch, mp: MainPath) -> None:
             "(full session + 6-of-8 flush)")
         del got, ref_batched
         log(f"  bits {bits}: {time.perf_counter() - t0:.1f} s")
+    report_timings(mp)
+
+
+def report_timings(mp: MainPath) -> None:
     for (label, bits), spans in sorted(mp.timings.items()):
         parts = []
         for key in ("encode_push", "push_encoded", "push", "decode",
@@ -288,12 +355,73 @@ def main_path(torch, mp: MainPath) -> None:
             if key in spans:
                 parts.append(f"{key} median {statistics.median(spans[key]):.1f}"
                              f" ms (n={len(spans[key])})")
+        # the first push of each session also derives its compression
+        # operators (a compressed run's median excludes that)
+        key = "encode_push" if "encode_push" in spans else "push"
+        parts.append("first push of each session " + ", ".join(
+            f"{spans[key][i]:.1f}" for i in (0, BUFFER)) + " ms")
         # a full session: buffer x (median push-side ms) + its flush
         push_ms = sum(statistics.median(spans[k]) for k in
                       ("encode_push", "push_encoded", "push") if k in spans)
         rate = BUFFER / ((BUFFER * push_ms + spans["decode"][0]) / 1e3)
         log(f"  timing {label} bits {bits}: " + "; ".join(parts)
-            + f"; {rate:.1f} updates/s")
+            + f"; {rate:.1f} updates/s; wire "
+            f"{mp.wire[(label, bits)]:,} B/contribution")
+    mp.timings.clear()
+
+
+def compressed_path(torch, mp: MainPath) -> None:
+    """Phase 2b: sketch (and one subsample) uploads, and the enclave wire."""
+    from repro_torch import tree as T
+    sketch = {"compress_mode": "sketch", "compress_rate": SKETCH_RATE}
+    for bits in (32, 16):
+        t0 = time.perf_counter()
+        ref = mp.run("off", bits, sketch, tag="+sketch")
+        check(finite(torch, ref), "off+sketch: non-finite params")
+        moved = max(float((a - b).abs().max()) for a, b in
+                    zip(T.leaves(ref), T.leaves(mp.params)))
+        check(moved > 0, "off+sketch: the parameters did not move")
+        for mode in ("client", "tee_stream"):
+            got = mp.run(mode, bits, sketch, tag="+sketch")
+            check(trees_equal(torch, got, ref),
+                  f"{mode}+sketch (bits {bits}) != streamed off+sketch")
+            log(f"  bits {bits}: {mode}+sketch@{SKETCH_RATE} bit-equal to "
+                "streamed off+sketch (full session + recovered 6-of-8 flush)")
+            del got
+        del ref
+        full = mp.wire[("off", bits)] if ("off", bits) in mp.wire else None
+        comp_b = mp.wire[("off+sketch", bits)]
+        if full:
+            log(f"  bits {bits}: sketch wire {comp_b:,} B vs {full:,} B "
+                f"uncompressed per contribution ({comp_b / full:.3f}x)")
+        pushes = BUFFER + 6
+        lanes = mp.lanes[("client+sketch", bits)]
+        check(lanes["compressed"] == 2 * pushes * comp_b
+              and lanes["packed"] == 0,
+              f"client+sketch bits {bits}: upload_bytes lanes {lanes}")
+        log(f"  bits {bits}: {time.perf_counter() - t0:.1f} s")
+    sub = {"compress_mode": "subsample", "compress_rate": SKETCH_RATE}
+    ref = mp.run("off", 16, sub, tag="+subsample")
+    got = mp.run("client", 16, sub, tag="+subsample")
+    check(finite(torch, got), "client+subsample: non-finite params")
+    check(trees_equal(torch, got, ref),
+          "client+subsample (bits 16) != streamed off+subsample")
+    log(f"  bits 16: client+subsample@{SKETCH_RATE} bit-equal to streamed "
+        "off+subsample")
+    del got, ref
+    got = mp.run("tee_stream", 32, {"enclave_wire_bits": 8}, tag="+enclave8")
+    check(finite(torch, got), "tee_stream+enclave8: non-finite params")
+    moved = max(float((a - b).abs().max()) for a, b in
+                zip(T.leaves(got), T.leaves(mp.params)))
+    check(moved > 0, "tee_stream+enclave8: the parameters did not move")
+    ebytes = mp.lanes[("tee_stream+enclave8", 32)]["enclave"]
+    raw = (BUFFER + 6) * 4 * sum(int(p.numel()) for p in T.leaves(mp.params))
+    check(0 < ebytes < 0.3 * raw,
+          f"enclave bytes {ebytes} not below 0.3 of the raw wire {raw}")
+    log(f"  tee_stream enclave_wire_bits=8: enclave bytes {ebytes:,} = "
+        f"{ebytes / raw:.3f} of the raw f32 wire; moved {moved:.3g}")
+    del got
+    report_timings(mp)
 
 
 # ---------------------------------------------------------------------------
@@ -302,7 +430,7 @@ def main_path(torch, mp: MainPath) -> None:
 def kernel_times(torch, counts) -> list:
     from repro_torch.kernels import prf
     from repro_torch.kernels import secure_agg as ksa
-    D = 151_936 * 1536  # the embedding chunk, the main path's largest
+    D = EMBED
     g = torch.Generator(device="cuda").manual_seed(2)
     scale = ((2 ** 31 - 1) / BUFFER - 1.0) / 4.0
     session = ksa.SessionMeta(key_words=(0x5A5E, 0xC401), num_slots=BUFFER)
@@ -343,18 +471,100 @@ def kernel_times(torch, counts) -> list:
           "weighted_quantize_accum != plain at full width")
     del want
     ms = _cuda_ms(torch, run, 3)
-    plain_lane_ms = _cuda_ms(
+    lane_ms = _cuda_ms(
         torch, lambda: ksa.weighted_quantize_accum(x, w, u, scale), 3)
-    log(f"  weighted_quantize_accum unmasked lane ({BUFFER}x{D}): "
-        f"{plain_lane_ms:.3f} ms")
     evals = BUFFER * nbrs * D / 2
     ops = evals * THREEFRY_OPS + BUFFER * D * (5 + nbrs)
     nbytes = 2 * BUFFER * D * 4 + BUFFER * 4 + D * 4
-    out.append(_entry("weighted_quantize_accum",
-                      "src/repro_torch/kernels/csrc/weighted_quantize_accum.cu",
-                      "src/repro/kernels/secure_agg.py:417",
-                      counts["weighted_quantize_accum"], ms, plain_ms, ops,
+    k2 = _entry("weighted_quantize_accum",
+                "src/repro_torch/kernels/csrc/weighted_quantize_accum.cu",
+                "src/repro/kernels/secure_agg.py:417",
+                counts["weighted_quantize_accum"], ms, plain_ms, ops, nbytes)
+    # the unmasked lane (batched off): the same bytes, no PRF
+    lane = _entry("", "", "", 0, lane_ms, 0.0, BUFFER * D * 5, nbytes)
+    k2.update(unmasked_lane_ms=lane_ms,
+              unmasked_lane_bound_ms=lane["bound_ms"],
+              unmasked_lane_bound_by=lane["bound_by"])
+    log(f"  weighted_quantize_accum unmasked lane ({BUFFER}x{D}): "
+        f"{lane_ms:.3f} ms (bound {lane['bound_ms']:.3f} ms by "
+        f"{lane['bound_by']})")
+    out.append(k2)
+    del x, w, u, got
+    torch.cuda.empty_cache()
+
+    # K4 at the embedding chunk: the sketch push's rotate + encode
+    x = torch.randn(D, generator=g, device="cuda") * DELTA_SCALE
+    okw = (0x1234, 0xCB01)
+    run = lambda: ksa.rotate_quantize_prf(x, scale, okw, (1, 2),  # noqa
+                                          u_offset=12345)
+    got = run()
+    t0 = time.perf_counter()
+    want = ksa.rotate_quantize_prf_plain(x, scale, okw, (1, 2),
+                                         u_offset=12345)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(got, want), "rotate_quantize_prf != plain at full "
+          "width")
+    del want
+    ms = _cuda_ms(torch, run, 5)
+    full = int(got.numel())
+    # one Threefry per two positions of each stream (sign and uniform, as
+    # stream_block generates them), 9 butterfly adds, scale, round
+    ops = full * THREEFRY_OPS + full * (9 + 5)
+    nbytes = D * 4 + full * 4
+    out.append(_entry("rotate_quantize_prf",
+                      "src/repro_torch/kernels/csrc/rotate_quantize_prf.cu",
+                      "src/repro/kernels/secure_agg.py:300",
+                      counts["rotate_quantize_prf"], ms, plain_ms, ops,
                       nbytes))
+    del x, got
+    torch.cuda.empty_cache()
+
+    # K5 at the embedding chunk: the engine field at bits 16 and buffer 8
+    # is 19 bits wide (the entries' numbers); 8 bits is the enclave wire
+    q = torch.randint(0, 1 << 19, (D,), generator=g, device="cuda",
+                      dtype=torch.int32)
+    for bits in (19, 8):
+        qb = q & ((1 << bits) - 1)
+        nwords = -(-D * bits // 32)
+        words = ksa.pack_residues(qb, bits)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ksa.pack_residues_plain(qb, bits)
+        torch.cuda.synchronize()
+        pack_plain = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(words, want),
+              f"pack_residues != plain at full width (bits {bits})")
+        t0 = time.perf_counter()
+        want = ksa.unpack_residues_plain(words, D, bits)
+        torch.cuda.synchronize()
+        unpack_plain = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(want, qb),
+              f"unpack_residues plain round trip (bits {bits})")
+        del want
+        check(torch.equal(ksa.unpack_residues(words, D, bits), qb),
+              f"unpack_residues round trip at full width (bits {bits})")
+        pack_ms = _cuda_ms(torch, lambda: ksa.pack_residues(qb, bits), 10)
+        unpack_ms = _cuda_ms(
+            torch, lambda: ksa.unpack_residues(words, D, bits), 10)
+        nbytes = D * 4 + nwords * 4
+        pack = _entry("pack_residues",
+                      "src/repro_torch/kernels/csrc/pack_residues.cu",
+                      "src/repro/kernels/secure_agg.py:527",
+                      counts["pack_residues"], pack_ms, pack_plain,
+                      D * 4, nbytes)
+        unpack = _entry("unpack_residues",
+                        "src/repro_torch/kernels/csrc/pack_residues.cu",
+                        "src/repro/kernels/secure_agg.py:570",
+                        counts["unpack_residues"], unpack_ms, unpack_plain,
+                        D * 6, nbytes)
+        if bits == 19:
+            out += [pack, unpack]
+        for e in (pack, unpack):
+            log(f"  {e['name']} bits {bits} ({D} residues): {e['ms']:.3f} "
+                f"ms (bound {e['bound_ms']:.3f} ms by {e['bound_by']}; "
+                f"plain {e['plain_ms']:.1f} ms)")
+        del words, qb
     for e in out:
         log(f"  {e['name']}: {e['ms']:.3f} ms (bound {e['bound_ms']:.3f} ms "
             f"by {e['bound_by']}; plain {e['plain_ms']:.1f} ms)")
@@ -398,29 +608,54 @@ def main() -> int:
 
     with Phase("phase 2: main path at full width"):
         from repro_torch.configs import qwen2_1_5b
-        ksa.reset_counts()
         mp = MainPath(torch, args.seed, qwen2_1_5b.CONFIG)
+        ksa.reset_counts()
         main_path(torch, mp)
-        counts = ksa.counts()
+        counts = {"uncompressed": ksa.counts()}
+
+    with Phase("phase 2b: compressed uploads and the enclave wire"):
+        ksa.reset_counts()
+        compressed_path(torch, mp)
+        counts["compressed"] = ksa.counts()
+        del mp
+        torch.cuda.empty_cache()
 
     with Phase("phase 3: kernels on the main path"):
-        launches = {k: v["launches"] for k, v in counts.items()}
-        plain = {k: v["plain_calls"] for k, v in counts.items()}
-        log("  kernels: " + json.dumps({"launches": launches,
-                                         "plain_calls": plain}))
-        chunks, bits_runs, per_session = EXPECT_CHUNKS, 2, BUFFER + 6
-        masked_pushes = 2 * bits_runs * per_session  # client + tee_stream
-        batched_flushes = 2 * bits_runs * 2  # (tee + batched off) x sessions
-        check(launches["quantize_mask_prf"] == masked_pushes * chunks,
-              f"quantize_mask_prf launched {launches['quantize_mask_prf']}"
-              f" times, want {masked_pushes * chunks}")
-        check(launches["weighted_quantize_accum"]
-              == batched_flushes * chunks,
-              f"weighted_quantize_accum launched "
-              f"{launches['weighted_quantize_accum']} times, want "
-              f"{batched_flushes * chunks}")
-        check(all(v == 0 for v in plain.values()),
-              f"plain versions ran on the CUDA path: {plain}")
+        # launches per path: one per chunk of every push (or flush) that
+        # runs the kernel; 14 pushes and 2 flushes per run
+        per_run = EXPECT_CHUNKS * (BUFFER + 6)
+        flushes = EXPECT_CHUNKS * 2
+        want = {
+            # bits 32/16 x (client + tee_stream); batched tee + off x 2 bits;
+            # the 19-bit client wire packs and unpacks every chunk
+            "uncompressed": {"quantize_mask_prf": 4 * per_run,
+                             "weighted_quantize_accum": 4 * flushes,
+                             "rotate_quantize_prf": 0,
+                             "pack_residues": per_run,
+                             "unpack_residues": per_run},
+            # sketch: off + client + tee_stream x 2 bits; the bits-16 client
+            # runs (sketch, subsample) pack; the enclave run is an
+            # uncompressed tee_stream push whose 8-bit wire packs
+            "compressed": {"quantize_mask_prf": per_run,
+                           "weighted_quantize_accum": 0,
+                           "rotate_quantize_prf": 6 * per_run,
+                           "pack_residues": 3 * per_run,
+                           "unpack_residues": 3 * per_run},
+        }
+        launches = {}
+        for path, got in counts.items():
+            runs = {k: v["launches"] for k, v in got.items()}
+            plain = {k: v["plain_calls"] for k, v in got.items()}
+            log(f"  {path} path: " + json.dumps({"launches": runs,
+                                                  "plain_calls": plain}))
+            check(runs == want[path],
+                  f"{path} path launches {runs}, want {want[path]}")
+            check(all(v == 0 for v in plain.values()),
+                  f"plain versions ran on the CUDA path: {plain}")
+            for k, v in runs.items():
+                launches[k] = launches.get(k, 0) + v
+        check(all(v > 0 for v in launches.values()),
+              f"a kernel never launched on the main path: {launches}")
 
     with Phase("phase 4: device and kernel times"):
         smi = subprocess.run(

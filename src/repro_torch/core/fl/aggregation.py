@@ -4,15 +4,19 @@ Port of the ``repro.core.fl.aggregation`` functions that ``AsyncServer``
 runs: the static :class:`AggregationSpec`, the pytree-native
 :class:`ParamPlan` (model leaves grouped into flat chunks, each chunk its own
 mask session and its own slice of the model-wide stochastic-rounding
-stream), the streamed per-arrival encode (``encode_plan_flat``) with its
-modular-sum flush (``aggregate_plan_masked_buffer``), and the batched flush
+stream), the per-session compression operators (``plan_operators``), the
+streamed per-arrival encode (``encode_plan_flat``, uncompressed or onto the
+compressed wire) with its modular-sum flush
+(``aggregate_plan_masked_buffer``), and the batched flush
 (``aggregate_plan_buffer``).
 
-The two fused kernels of that path are called unconditionally —
-``kernels.secure_agg.quantize_mask_prf`` for every masked streamed push and
+The fused kernels of that path are called unconditionally —
+``kernels.secure_agg.quantize_mask_prf`` for every uncompressed masked
+streamed push, ``rotate_quantize_prf`` for every sketch push and
 ``weighted_quantize_accum`` for every batched flush — and the tensor's
 device picks the implementation (plain PyTorch on the CPU, the Hopper kernel
-on the card).  The streamed unmasked encode is plain PyTorch, as in the JAX
+on the card).  The streamed unmasked encode, the subsample encode and the
+wire-width masks of a compressed push are plain PyTorch, as in the JAX
 package.
 
 Bit-exactness with the JAX package holds for every integer and every float
@@ -85,13 +89,6 @@ def make_spec(fl_cfg, num_contributors: int) -> AggregationSpec:
             mode=getattr(fl_cfg, "compress_mode", "none"),
             rate=getattr(fl_cfg, "compress_rate", 1.0)),
     )
-
-
-def require_identity_compression(spec: AggregationSpec) -> None:
-    if not spec.compression.identity:
-        raise NotImplementedError(
-            f"upload compression ({spec.compression.describe()}) is not "
-            "ported yet; the port runs the uncompressed wire only")
 
 
 def make_mask_session(spec: AggregationSpec, key, *,
@@ -301,26 +298,49 @@ def plan_wire_chunks(spec: AggregationSpec, plan: ParamPlan):
     return comp.wire_chunks(spec.compression, plan.chunks)
 
 
+def plan_operators(spec: AggregationSpec, plan: ParamPlan, session_key, *,
+                   device=None):
+    """Per-chunk compression operators on ``device``, or None (identity).
+
+    Chunk c's operator key is ``fold_in(session_keys[c], COMPRESSION_TAG)``:
+    it depends on the session key alone, so the engine derives the
+    operators once per session and shares them between push and flush.
+    """
+    c = spec.compression
+    if c.identity:
+        return None
+    return tuple(
+        comp.chunk_operators(prf.fold_in(k, comp.COMPRESSION_TAG), c.mode,
+                             ck.size, c.rate, device=device)
+        for k, ck in zip(plan.session_keys(session_key), plan.chunks))
+
+
 # ---------------------------------------------------------------------------
 # Streamed per-arrival encode and its flush
 # ---------------------------------------------------------------------------
 def encode_plan_flat(xs: Sequence[torch.Tensor], weight, slot: int,
                      spec: AggregationSpec, plan: ParamPlan, sessions, rng, *,
-                     masked: bool = True):
+                     masked: bool = True, ops=None):
     """The streamed per-arrival encode on pre-chunked flat tensors.
 
     One GLOBAL clip scale from the whole-model norm, the
     ``fold_in(rng, 2)`` TAG_UNIFORM stream at each chunk's global offset,
     and (``masked``) each chunk's pairwise mask under its own session —
-    fused in ``kernels.secure_agg.quantize_mask_prf``.  Returns (tuple of
-    PADDED (padded_c,) int32 rows, pre-clip norm, was_clipped).
+    fused in ``kernels.secure_agg.quantize_mask_prf``.
+
+    ``ops`` (from :func:`plan_operators`) puts the chunks on the COMPRESSED
+    wire: quantize in the operator domain (the sketch through
+    ``rotate_quantize_prf``; uniform positions are operator-domain indices
+    at the chunk's global offset), keep the ``op.idx`` coordinates, then
+    mask at the wire width.  Returns (tuple of PADDED (wire padded_c,)
+    int32 rows, pre-clip norm, was_clipped).
     """
-    require_identity_compression(spec)
     dev = xs[0].device
     nrm = torch.sqrt(plan_sq_norms(plan, xs))
     clip_scale = clip_scales(nrm, spec.clip_norm)
     weight = torch.as_tensor(weight, dtype=torch.float32, device=dev)
     u_words = prf.fold_in(rng, 2)
+    wire = plan_wire_chunks(spec, plan) if ops is not None else None
     rows = []
     for c, (ck, x) in enumerate(zip(plan.chunks, xs)):
         xw = x * (weight * clip_scale)
@@ -329,6 +349,11 @@ def encode_plan_flat(xs: Sequence[torch.Tensor], weight, slot: int,
             noise = torch.randn(x.shape, generator=g, dtype=torch.float32,
                                 device=dev)
             xw = xw + noise * (spec.dev_noise * weight)
+        if ops is not None:
+            rows.append(_encode_compressed(xw, ck, ops[c], wire[c], slot,
+                                           spec, sessions, c, u_words,
+                                           masked))
+            continue
         if masked:
             row = ksa.quantize_mask_prf(
                 xw, spec.sa_scale, slot, u_words,
@@ -343,26 +368,49 @@ def encode_plan_flat(xs: Sequence[torch.Tensor], weight, slot: int,
     return tuple(rows), nrm, (clip_scale < 1.0).to(torch.float32)
 
 
+def _encode_compressed(xw: torch.Tensor, ck: ChunkSpec, op: comp.ChunkOps,
+                       wc: comp.WireChunk, slot: int, spec: AggregationSpec,
+                       sessions, c: int, u_words, masked: bool):
+    """One chunk onto the compressed wire: (wc.padded,) int32."""
+    dev = xw.device
+    if op.mode == "sketch":
+        q_full = ksa.rotate_quantize_prf(xw.contiguous(), spec.sa_scale,
+                                         op.key_words, u_words,
+                                         u_offset=ck.offset)
+    else:
+        u = prf.uniform_block(*u_words, op.full, offset=ck.offset, device=dev)
+        q_full = ksa.stochastic_round(xw * spec.sa_scale, u)
+    row = q_full.index_select(0, op.idx)
+    del q_full
+    if masked:
+        m = sessions[c].mask((wc.size,), slot, device=dev)
+        row = prf.to_int32(prf.words_of(row) + prf.words_of(m))
+    if wc.padded > wc.size:
+        row = torch.nn.functional.pad(row, (0, wc.padded - wc.size))
+    return row
+
+
 def encode_plan_contribution(delta, weight, slot: int, spec: AggregationSpec,
                              plan: ParamPlan, sessions, rng, *,
-                             masked: bool = True):
+                             masked: bool = True, ops=None):
     """Tree form of :func:`encode_plan_flat` — the client-side encode."""
     return encode_plan_flat(plan.chunk_arrays(delta), weight, slot, spec,
-                            plan, sessions, rng, masked=masked)
+                            plan, sessions, rng, masked=masked, ops=ops)
 
 
 def aggregate_plan_masked_buffer(bufs: Sequence[torch.Tensor], present,
                                  total_weight, spec: AggregationSpec,
                                  plan: ParamPlan, sessions, rng, *,
-                                 recover: bool = True, masked: bool = True):
+                                 recover: bool = True, masked: bool = True,
+                                 ops=None):
     """Modular sum of the streamed int32 rows + dropout recovery + decode.
 
     ``present`` is host metadata (one flag per slot).  With ``recover``,
     absent rows are gated out and (``masked``) each chunk's recovery sweep
-    re-adds the absent slots' mask shares; without it the session is known
-    complete and the masks cancel in the plain sum.
+    re-adds the absent slots' mask shares at the unpadded WIRE width;
+    without it the session is known complete and the masks cancel in the
+    plain sum.  ``ops`` decodes operator-domain (compressed) buffers.
     """
-    require_identity_compression(spec)
     pres = sa.present_flags(present)
     wire = plan_wire_chunks(spec, plan)
     accs = []
@@ -379,7 +427,7 @@ def aggregate_plan_masked_buffer(bufs: Sequence[torch.Tensor], present,
             acc = sum_rows(mbuf)
         accs.append(acc)
     return finalize_plan_aggregate(accs, total_weight, spec, plan,
-                                   prf.fold_in(rng, 0xDEE))
+                                   prf.fold_in(rng, 0xDEE), ops=ops)
 
 
 # ---------------------------------------------------------------------------
@@ -482,7 +530,6 @@ def aggregate_plan_buffer(bufs: Sequence[torch.Tensor], weights: torch.Tensor,
     """The batched tee/off flush over per-chunk (B, padded_c) f32 buffers.
 
     Returns (mean tree, stats)."""
-    require_identity_compression(spec)
     B = bufs[0].shape[0]
     noise, uniforms = plan_buffer_noise_and_uniforms(rng, B, spec, plan,
                                                      bufs[0].device)
@@ -504,24 +551,35 @@ def aggregate_plan_buffer(bufs: Sequence[torch.Tensor], weights: torch.Tensor,
 
 
 def finalize_plan_aggregate(accs: Sequence[torch.Tensor], total_weight,
-                            spec: AggregationSpec, plan: ParamPlan, rng):
+                            spec: AggregationSpec, plan: ParamPlan, rng, *,
+                            ops=None):
     """Decode, divide by the total weight, reassemble the tree, TEE noise.
 
     The decode multiplies by the f32 reciprocal of the fixed-point scale:
     the JAX engine divides by that compile-time constant inside ``jit``,
     and XLA compiles such a division as a multiply by the f32-rounded
     reciprocal, whose results differ from a true division for most scales.
+    ``ops`` expands each chunk's operator-domain aggregate once; XLA folds
+    the reciprocal and the expand's ``full/m`` into one f32 constant there,
+    and so does :func:`compression.expand` given ``descale``.
     """
     dev = accs[0].device
     w = torch.clamp(torch.as_tensor(total_weight, dtype=torch.float32,
                                     device=dev), min=1e-9)
-    inv_scale = _scalar(1.0, dev) / _scalar(spec.sa_scale, dev)
+    descale = float(_scalar(1.0, "cpu") / _scalar(spec.sa_scale, "cpu"))
+    inv_scale = _scalar(descale, dev)
     flats = []
-    for ck, acc in zip(plan.chunks, accs):
-        a = acc[:ck.size]
+    for c, (ck, acc) in enumerate(zip(plan.chunks, accs)):
+        op = None if ops is None else ops[c]
+        a = acc[:ck.size] if op is None else acc[:op.m]
         if spec.use_secure_agg:
-            a = sa.recenter(a, spec.field_modulus).to(torch.float32) \
-                * inv_scale
+            a = sa.recenter(a, spec.field_modulus).to(torch.float32)
+            if op is None:
+                a = a * inv_scale
+            else:
+                a = comp.expand(a, op, ck.size, descale=descale)
+        elif op is not None:
+            a = comp.expand(a, op, ck.size)
         flats.append(a / w)
     mean = plan.unchunk(flats)
     if spec.tee_noise > 0.0:

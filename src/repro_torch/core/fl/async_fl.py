@@ -12,9 +12,14 @@ eagerly, and PRNG keys are ``(k0, k1)`` word pairs derived exactly as the
 JAX engine derives them — so with the same deltas the port produces the
 same ``ClientPush`` words, buffers and parameters.
 
-Not ported yet (raise ``NotImplementedError``): ``enclave_wire_bits``,
-active upload compression, random k-regular mask graphs; and the
-``simulate``/``simulate_training`` simulators.
+The streamed engines take compressed uploads (``compress_mode``
+"subsample"/"sketch"): the session's operators are derived once per session
+on the device and shared by push and flush, and the buffers hold the
+operator-domain rows at the wire widths.  ``enclave_wire_bits`` quantizes
+the tee/tee_stream uplink onto a packed field wire.
+
+Not ported yet (raise ``NotImplementedError``): random k-regular mask
+graphs, and the ``simulate``/``simulate_training`` simulators.
 """
 from __future__ import annotations
 
@@ -97,7 +102,13 @@ def build_async_buffer_step(params, fl_cfg, *, buffer_size: int,
     spec = agg.make_spec(fl_cfg, buffer_size)
     if mask_mode == "tee" and not spec.use_secure_agg:
         raise ValueError("mask_mode='tee' requires secure_agg_bits > 0")
-    agg.require_identity_compression(spec)
+    if not spec.compression.identity:
+        raise ValueError(
+            f"upload compression ({spec.compression.describe()}) runs on "
+            "the STREAMING engines only (mask_mode 'client'/'tee_stream' "
+            "or the streamed 'off' encode): the batched buffer step holds "
+            "raw f32 deltas, so there is no client-side wire to compress. "
+            "Set compress_rate=1.0 here or switch to a streaming mode.")
     server = build_server_opt(fl_cfg)
     plan = agg.plan_for(params, fl_cfg)
 
@@ -127,23 +138,24 @@ def build_masked_async_buffer_step(params, fl_cfg, *, buffer_size: int,
                                    masked: bool = True,
                                    device=None) -> Callable:
     """``step(params, opt_state, mbufs, present, weights, staleness, norms,
-    clips, session_key, rng)`` — the flush of the streamed int32 buffer on
-    ``device`` (default the GPU).
+    clips, session_key, rng, ops=None)`` — the flush of the streamed int32
+    buffer on ``device`` (default the GPU).
 
     ``present`` is the per-slot delivery flags (host list or tensor).
     ``recover=True`` gates absent slots and (``masked``) re-adds their mask
-    shares; ``recover=False`` is the complete-session flush.
+    shares; ``recover=False`` is the complete-session flush.  Under an
+    active compression spec the buffers hold operator-domain rows, decoded
+    with ``ops`` (derived from ``session_key`` when not given).
     """
     _device.resolve(device)
     spec = agg.make_spec(fl_cfg, buffer_size)
     if not spec.use_secure_agg:
         raise ValueError("client-masked aggregation requires secure_agg_bits > 0")
-    agg.require_identity_compression(spec)
     server = build_server_opt(fl_cfg)
     plan = agg.plan_for(params, fl_cfg)
 
     def step(params, opt_state, mbufs, present, weights, staleness, norms,
-             clips, session_key, rng):
+             clips, session_key, rng, ops=None):
         mbufs = mbufs if isinstance(mbufs, (tuple, list)) else (mbufs,)
         pres = torch.as_tensor(sa.present_flags(present), dtype=torch.float32,
                                device=weights.device)
@@ -151,9 +163,12 @@ def build_masked_async_buffer_step(params, fl_cfg, *, buffer_size: int,
         w_total = w.sum()
         sessions = (agg.plan_sessions(spec, plan, session_key) if masked
                     else None)
+        if ops is None:
+            ops = agg.plan_operators(spec, plan, session_key,
+                                     device=weights.device)
         mean_delta = agg.aggregate_plan_masked_buffer(
             mbufs, present, w_total, spec, plan, sessions, rng,
-            recover=recover, masked=masked)
+            recover=recover, masked=masked, ops=ops)
         new_params, new_opt = server.apply(params, opt_state, mean_delta)
         denom = torch.clamp(w_total, min=1e-9)
         metrics = {
@@ -212,10 +227,6 @@ class AsyncServer:
         if mask_mode not in ("off", "tee", "tee_stream", "client"):
             raise ValueError(f"mask_mode {mask_mode!r}")
         self.device = _device.resolve(device)
-        if int(getattr(fl_cfg, "enclave_wire_bits", 0)) and mask_mode in (
-                "tee", "tee_stream"):
-            raise NotImplementedError(
-                "enclave_wire_bits is not ported yet (next slice)")
         self.params = _as_device_tree(params, self.device)
         self.fl_cfg = fl_cfg
         self.buffer_size = buffer_size
@@ -249,7 +260,16 @@ class AsyncServer:
                                   device=dev)
         spec = agg.make_spec(fl_cfg, buffer_size)
         self._spec = spec
-        agg.require_identity_compression(spec)
+        # the session's compression operators: (version, ops), derived on
+        # first use in a session and shared by its pushes and its flush
+        self._ops = (None, None)
+        # enclave quantized wire: tee modes ship packed words of this width
+        # instead of the raw f32 delta (FLConfig.enclave_wire_bits)
+        ebits = int(getattr(fl_cfg, "enclave_wire_bits", 0))
+        self._enclave_bits = ebits if mask_mode in ("tee", "tee_stream") \
+            else 0
+        self._enclave_seq = 0
+        self._enclave_base = prf.PRNGKey(0xE7C)
         if spec.random_graph:
             raise NotImplementedError(
                 "random k-regular mask graphs (session_perm) are not ported "
@@ -306,6 +326,21 @@ class AsyncServer:
         self._token_counter += 1
         return self._token_counter
 
+    def _operators(self):
+        """The current session's compression operators (None: identity)."""
+        if self._spec.compression.identity:
+            return None
+        version, ops = self._ops
+        if version != self.version:
+            self._ops = (None, None)  # free the last session's first
+            ops = agg.plan_operators(self._spec, self._plan,
+                                     self._session_key(), device=self.device)
+            self._ops = (self.version, ops)
+        return ops
+
+    def _upload_lane(self) -> str:
+        return "packed" if self._spec.compression.identity else "compressed"
+
     def _span(self, name: str, **labels):
         return self.telemetry.span(name, round=self.version, **self._tl,
                                    **labels)
@@ -324,8 +359,27 @@ class AsyncServer:
                     if self._masked else None)
         delta = _as_device_tree(delta, self.device)
         rows, nrm, clipped = agg.encode_plan_contribution(
-            delta, w, slot, spec, plan, sessions, rng, masked=self._masked)
+            delta, w, slot, spec, plan, sessions, rng, masked=self._masked,
+            ops=self._operators())
         return rows, w, nrm, clipped
+
+    def _enclave_wire(self, delta, key):
+        """The client side of the enclave wire, then the enclave's ingest:
+        per chunk, stochastic quantize -> canonical field residues ->
+        packed words (what crosses the wire) -> unpack -> dequantize.
+        Returns (the reconstructed delta tree, the per-chunk words)."""
+        ebits = self._enclave_bits
+        emod = (1 << ebits) if ebits < 32 else (1 << 32)
+        evr = float(self.fl_cfg.secure_agg_range)
+        xs = self._plan.chunk_arrays(_as_device_tree(delta, self.device))
+        outs, words = [], []
+        for c, x in enumerate(xs):
+            q = sa.quantize(x, ebits, evr, prf.fold_in(key, c))
+            w = sa.pack_residues(sa.to_field(q, emod), emod)
+            q2 = sa.recenter(sa.unpack_residues(w, x.shape[-1], emod), emod)
+            outs.append(sa.dequantize(q2, ebits, evr))
+            words.append(w)
+        return self._plan.unchunk(outs), tuple(words)
 
     def _wire_pack(self, rows, session_key):
         """Client side: each chunk's session ``reduce``s its row to packed
@@ -393,7 +447,7 @@ class AsyncServer:
             sp.fence(rows)
         self.telemetry.count(
             "upload_bytes", 4 * sum(int(r.numel()) for r in rows),
-            lane="packed", **self._tl)
+            lane=self._upload_lane(), **self._tl)
         row = rows[0] if len(rows) == 1 else rows
         return ClientPush(row, w, nrm, clipped, staleness, self.version,
                           slot, self._spec.field_modulus, self._new_token(),
@@ -444,11 +498,14 @@ class AsyncServer:
             raise ValueError(
                 f"ClientPush encoded under compression "
                 f"{cp.compression.describe()} but the server's session "
-                f"expects {self._spec.compression.describe()}")
+                f"expects {self._spec.compression.describe()}: the row "
+                "lives in a different sketch domain and would decode to "
+                "garbage — client and server must agree on compress_mode "
+                "and compress_rate for the session")
         wrows = cp.row if isinstance(cp.row, tuple) else (cp.row,)
         self.telemetry.count(
             "upload_bytes", 4 * sum(int(w_.numel()) for w_ in wrows),
-            lane="packed", **self._tl)
+            lane=self._upload_lane(), **self._tl)
         rows = self._wire_unpack(wrows)
         if cp.token:
             self._delivered_tokens.add(cp.token)
@@ -503,6 +560,15 @@ class AsyncServer:
         staleness = self.version - client_version
         if push_id is not None:
             self._delivered_tokens.add(push_id)
+        if self._enclave_bits:
+            # the tee ingests the client-side quantization's reconstruction;
+            # the packed words are what crossed the wire
+            ekey = prf.fold_in(self._enclave_base, self._enclave_seq)
+            self._enclave_seq += 1
+            delta, ewords = self._enclave_wire(delta, ekey)
+            self.telemetry.count(
+                "upload_bytes", 4 * sum(int(w_.numel()) for w_ in ewords),
+                lane="enclave", **self._tl)
         if slot is None:
             slot = self._present.index(False)
         if self._streaming:
@@ -550,7 +616,8 @@ class AsyncServer:
                 self.params, self._opt_state, self.last_metrics = step(
                     self.params, self._opt_state, self._bufs,
                     list(self._present), self._wts, self._stal, self._norms,
-                    self._clips, self._session_key(), rng)
+                    self._clips, self._session_key(), rng,
+                    ops=self._operators())
             else:
                 self.params, self._opt_state, self.last_metrics = self._step(
                     self.params, self._opt_state, self._bufs, self._stal,
@@ -559,6 +626,7 @@ class AsyncServer:
             self._present = [False] * self.buffer_size
             sp.fence(self.params)
         self.version += 1
+        self._ops = (None, None)
         self._applied_updates += self._fill
         self.telemetry.count("aggregated_contributions", self._fill,
                              **self._tl)

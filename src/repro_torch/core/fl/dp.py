@@ -38,10 +38,15 @@ def clip_update(update, clip_norm: float) -> Tuple:
 
 
 def generator(key, device) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded from PRF key words."""
-    k0, k1 = prf.key_words(key)
+    """A ``torch.Generator`` on ``device`` seeded from PRF key words.
+
+    The seed is a Threefry hash of both words: the CPU generator keeps only
+    the seed's low 32 bits, so keys differing in ``k0`` alone would
+    otherwise draw the same numbers there.
+    """
+    h0, h1 = prf.threefry2x32(*prf.key_words(key), 0, 0)
     g = torch.Generator(device=device)
-    g.manual_seed((k0 << 32 | k1) & ((1 << 63) - 1))
+    g.manual_seed((h0 << 32 | h1) & ((1 << 63) - 1))
     return g
 
 

@@ -1,10 +1,12 @@
 """Secure aggregation: field codec and pairwise session masks (port).
 
 Port of ``repro.core.fl.secure_agg`` — the parts the buffered-async engine
-uses: the power-of-two secure-agg field (``field_modulus``/``to_field``/
+uses: the fixed-point ``quantize``/``dequantize`` of the enclave wire, the
+power-of-two secure-agg field (``field_modulus``/``to_field``/
 ``recenter``), the packed wire codec (``pack_residues``/``unpack_residues``,
-widths 1..32), the mask-graph enumeration, and the session masks and
-dropout recovery as one :class:`MaskSession` value.  Every mask is a sum of
+widths 1..32; below 32 bits it is ``kernels.secure_agg``'s K5), the
+mask-graph enumeration, and the session masks and dropout recovery as one
+:class:`MaskSession` value.  Every mask is a sum of
 counter-based pair streams (``repro_torch.kernels.prf``), bit-identical to
 the JAX functions.
 
@@ -25,7 +27,44 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.fl import dp
 from repro_torch.kernels import prf
+from repro_torch.kernels import secure_agg as ksa
+
+
+def quantize(x: torch.Tensor, bits: int, value_range: float,
+             rng=None) -> torch.Tensor:
+    """Fixed-point encode to int32: x in [-range, range] -> int levels.
+
+    With ``rng`` (PRF key words), stochastic rounding against uniforms from
+    a ``torch.Generator`` seeded from the key — the law of the reference's
+    ``jax.random.uniform`` draw, not its numbers; else round half to even.
+    """
+    dev = x.device
+    levels = torch.tensor(2 ** (bits - 1) - 1, dtype=torch.float32,
+                          device=dev)
+    scale = levels / torch.tensor(value_range, dtype=torch.float32,
+                                  device=dev)
+    xf = torch.clamp(x.to(torch.float32), -value_range, value_range) * scale
+    if rng is not None:
+        floor = torch.floor(xf)
+        u = torch.rand(xf.shape, generator=dp.generator(rng, dev),
+                       dtype=torch.float32, device=dev)
+        xf = floor + (u < (xf - floor)).to(torch.float32)
+    else:
+        xf = torch.round(xf)
+    return xf.to(torch.int32)
+
+
+def dequantize(q: torch.Tensor, bits: int, value_range: float,
+               count: int = 1) -> torch.Tensor:
+    """Decode an (aggregated) fixed-point tensor back to f32, re-centred in
+    the ``field_modulus(bits, count)`` wraparound window."""
+    dev = q.device
+    levels = torch.tensor(2 ** (bits - 1) - 1, dtype=torch.float32,
+                          device=dev)
+    step = torch.tensor(value_range, dtype=torch.float32, device=dev) / levels
+    return recenter(q, field_modulus(bits, count)).to(torch.float32) * step
 
 
 def _size(shape) -> int:
@@ -87,29 +126,14 @@ def pack_residues(q: torch.Tensor, modulus: int) -> torch.Tensor:
     Element ``e`` occupies stream bits ``[e*w, (e+1)*w)``, word ``k`` holds
     stream bits ``[32k, 32k+32)`` — the JAX package's layout, so the words
     equal its uint32 stream bit for bit.  At the full 2^32 field the stream
-    is the row itself.
+    is the row itself; below it the words come from
+    ``kernels.secure_agg.pack_residues`` (the CUDA kernel for a CUDA
+    tensor, its plain version on the CPU).
     """
     bits = wire_bits(modulus)
     if bits == 32:
         return q.to(torch.int32).clone()
-    size = q.shape[-1]
-    nwords = packed_words(size, modulus)
-    v = q.to(torch.int64) & ((1 << bits) - 1)
-    groups = -(-size // 32)
-    pad = groups * 32 - size
-    if pad:
-        v = torch.nn.functional.pad(v, (0, pad))
-    g = v.reshape(v.shape[:-1] + (groups, 32))
-    cols = [torch.zeros(g.shape[:-1], dtype=torch.int64, device=q.device)
-            for _ in range(bits)]
-    for j in range(32):  # each element lands in <= 2 words
-        w0, shift = divmod(j * bits, 32)
-        cols[w0] |= (g[..., j] << shift) & prf.M32
-        if shift + bits > 32:
-            cols[w0 + 1] |= g[..., j] >> (32 - shift)
-    words = torch.stack(cols, dim=-1).reshape(g.shape[:-2]
-                                              + (groups * bits,))
-    return prf.to_int32(words[..., :nwords])
+    return ksa.pack_residues(q, bits)
 
 
 def unpack_residues(words: torch.Tensor, size: int,
@@ -125,22 +149,7 @@ def unpack_residues(words: torch.Tensor, size: int,
             f"under a different session field?")
     if bits == 32:
         return words.to(torch.int32).clone()
-    mask = (1 << bits) - 1
-    w = prf.words_of(words)
-    groups = -(-size // 32)
-    pad = groups * bits - nwords
-    if pad:
-        w = torch.nn.functional.pad(w, (0, pad))
-    w = w.reshape(w.shape[:-1] + (groups, bits))
-    elems = []
-    for j in range(32):
-        w0, shift = divmod(j * bits, 32)
-        v = w[..., w0] >> shift
-        if shift + bits > 32:
-            v = v | ((w[..., w0 + 1] << (32 - shift)) & prf.M32)
-        elems.append(v & mask)
-    out = torch.stack(elems, dim=-1).reshape(w.shape[:-2] + (groups * 32,))
-    return out[..., :size].to(torch.int32)
+    return ksa.unpack_residues(words, size, bits)
 
 
 # ---------------------------------------------------------------------------

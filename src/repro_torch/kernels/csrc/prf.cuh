@@ -16,6 +16,7 @@ namespace repro_prf {
 constexpr uint32_t kParity = 0x1BD11BDAu;
 constexpr uint32_t kTagMask = 0u;
 constexpr uint32_t kTagUniform = 1u;
+constexpr uint32_t kTagSign = 2u;
 constexpr int kRounds = 13;
 
 __host__ __device__ constexpr int rotation(int i) {

@@ -1,6 +1,6 @@
-"""Secure-aggregation kernels: fused PRF-masked encode and accumulation.
+"""Secure-aggregation kernels: fused encode, accumulation and wire codec.
 
-Port of the two ``repro.kernels.secure_agg`` Pallas kernels on the
+Port of the ``repro.kernels.secure_agg`` Pallas kernels on the
 buffered-async engine's path, each as a wrapper plus its plain PyTorch
 version:
 
@@ -11,20 +11,27 @@ version:
   ``weighted_quantize_accum``  the batched flush (tee and unstreamed off):
                                ``sum_c q(x[c] * w[c] * s) (+ m_c)`` mod 2^32,
                                with no mask, explicit masks, or in-kernel PRF
-                               session masks.
+                               session masks;
+  ``rotate_quantize_prf``      the sketch-compressed push: ``TAG_SIGN`` ±1
+                               diagonal, 512-wide Walsh–Hadamard butterflies
+                               and the stochastic encode, one Hadamard block
+                               at a time;
+  ``pack_residues`` /          the packed sub-32-bit wire: field residues
+  ``unpack_residues``          <-> a dense little-endian 32-bit word stream.
 
 Dispatch is by device, never by a flag: a CPU tensor runs the plain version,
-a CUDA tensor launches the hand-written Hopper kernel
-(``csrc/quantize_mask_prf.cu``, ``csrc/weighted_quantize_accum.cu``) or
-raises — there is no fallback from the card to the plain version.  Each
+a CUDA tensor launches the hand-written Hopper kernel (``csrc/<name>.cu``;
+both codec directions live in ``csrc/pack_residues.cu``) or raises — there
+is no fallback from the card to the plain version.  Each
 wrapper counts its kernel launches (``.launches``) and its plain-version
 dispatches (``.plain_calls``) as plain integers, so a run can show that the
 main path went through the kernels.
 
 The plain versions are the bit-exact spec (they reproduce
 ``repro.kernels.ref``); the kernels must equal them bit for bit.  Like the
-JAX package, this module never imports the protocol layer: sessions arrive
-as a :class:`SessionMeta`.
+JAX package, this module never imports the protocol layer (it takes only
+the Hadamard butterflies from ``core.fl.compression``): sessions arrive as
+a :class:`SessionMeta`, codec widths as ``bits``.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.fl import compression as comp
 from repro_torch.kernels import prf
 
 # neighbours whose pair keys a kernel block stages in shared memory
@@ -63,9 +71,14 @@ def _counted(fn):
     return fn
 
 
+def _wrappers():
+    return (quantize_mask_prf, weighted_quantize_accum, rotate_quantize_prf,
+            pack_residues, unpack_residues)
+
+
 def reset_counts() -> None:
     """Zero every wrapper's launch and plain-dispatch counts."""
-    for fn in (quantize_mask_prf, weighted_quantize_accum):
+    for fn in _wrappers():
         fn.launches = 0
         fn.plain_calls = 0
 
@@ -73,7 +86,7 @@ def reset_counts() -> None:
 def counts() -> dict:
     return {fn.__name__: {"launches": fn.launches,
                           "plain_calls": fn.plain_calls}
-            for fn in (quantize_mask_prf, weighted_quantize_accum)}
+            for fn in _wrappers()}
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +170,82 @@ def weighted_quantize_accum_plain(x: torch.Tensor, weights: torch.Tensor,
     return prf.to_int32(acc)
 
 
+def rotate_quantize_prf_plain(x: torch.Tensor, scale: float, op_key_words,
+                              uniform_key_words, *, u_offset: int = 0
+                              ) -> torch.Tensor:
+    """Plain version of :func:`rotate_quantize_prf` (any device).
+
+    ``q(blockFWHT(signs ⊙ x) · scale)`` with fwht's ``1/sqrt(512)`` and
+    ``scale`` applied as their folded f32 product (as the jitted reference
+    computes it); returns the full operator-domain (ceil(D/512)·512,) int32.
+    """
+    (D,) = x.shape
+    full = -(-D // comp.SKETCH_BLOCK) * comp.SKETCH_BLOCK
+    o0, o1 = prf.key_words(op_key_words)
+    u0, u1 = prf.key_words(uniform_key_words)
+    bits = prf.stream_block(o0, o1, full, tag=prf.TAG_SIGN, device=x.device)
+    signs = 1.0 - 2.0 * (bits & 1).to(torch.float32)
+    del bits
+    y = torch.nn.functional.pad(x.to(torch.float32), (0, full - D)) * signs
+    del signs
+    y = comp.butterflies(y.reshape(-1, comp.SKETCH_BLOCK)).reshape(full)
+    y = y * torch.tensor(comp.sketch_multiplier(scale), dtype=torch.float32,
+                         device=x.device)
+    u = prf.uniform_block(u0, u1, full, offset=int(u_offset), device=x.device)
+    return stochastic_round(y, u)
+
+
+def pack_residues_plain(q: torch.Tensor, bits: int) -> torch.Tensor:
+    """Plain version of :func:`pack_residues`: residues (last axis) ->
+    ``ceil(size*bits/32)`` words (int32 bits), any leading axes.
+
+    Element ``e`` occupies stream bits ``[e*bits, (e+1)*bits)`` and word
+    ``k`` holds stream bits ``[32k, 32k+32)``, so 32 residues fill exactly
+    ``bits`` words; ragged tails pad with zero residues.
+    """
+    size = q.shape[-1]
+    nwords = -(-size * bits // 32)
+    v = q.to(torch.int64) & ((1 << bits) - 1)
+    groups = -(-size // 32)
+    pad = groups * 32 - size
+    if pad:
+        v = torch.nn.functional.pad(v, (0, pad))
+    g = v.reshape(tuple(v.shape[:-1]) + (groups, 32))
+    cols = [torch.zeros(g.shape[:-1], dtype=torch.int64, device=q.device)
+            for _ in range(bits)]
+    for j in range(32):  # each element lands in <= 2 words
+        w0, shift = divmod(j * bits, 32)
+        cols[w0] |= (g[..., j] << shift) & prf.M32
+        if shift + bits > 32:
+            cols[w0 + 1] |= g[..., j] >> (32 - shift)
+    words = torch.stack(cols, dim=-1).reshape(tuple(g.shape[:-2])
+                                              + (groups * bits,))
+    return prf.to_int32(words[..., :nwords])
+
+
+def unpack_residues_plain(words: torch.Tensor, size: int,
+                          bits: int) -> torch.Tensor:
+    """Plain version of :func:`unpack_residues` (any leading axes)."""
+    nwords = -(-size * bits // 32)
+    mask = (1 << bits) - 1
+    w = prf.words_of(words)
+    groups = -(-size // 32)
+    pad = groups * bits - nwords
+    if pad:
+        w = torch.nn.functional.pad(w, (0, pad))
+    w = w.reshape(tuple(w.shape[:-1]) + (groups, bits))
+    elems = []
+    for j in range(32):
+        w0, shift = divmod(j * bits, 32)
+        v = w[..., w0] >> shift
+        if shift + bits > 32:
+            v = v | ((w[..., w0 + 1] << (32 - shift)) & prf.M32)
+        elems.append(v & mask)
+    out = torch.stack(elems, dim=-1).reshape(tuple(w.shape[:-2])
+                                             + (groups * 32,))
+    return prf.to_int32(out[..., :size])
+
+
 # ---------------------------------------------------------------------------
 # CUDA launches
 # ---------------------------------------------------------------------------
@@ -172,12 +261,20 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_i64,
         _c_i64, _c_f32, _c_i32, _c_u32, _c_u32, _c_i32, _c_i32, _c_i32,
         _c_void_p, _c_i32, _c_void_p],
+    "rotate_quantize_prf": [
+        _c_void_p, _c_void_p, _c_i64, _c_i64, _c_f32, _c_u32, _c_u32,
+        _c_u32, _c_u32, _c_u32, _c_void_p],
+    "pack_residues": [_c_void_p, _c_void_p, _c_i64, _c_i64, _c_i32,
+                      _c_void_p],
+    "unpack_residues": [_c_void_p, _c_void_p, _c_i64, _c_i32, _c_void_p],
 }
+# the csrc/ source (and library) of each launch function
+_SOURCE = {"unpack_residues": "pack_residues"}
 
 
 def _launcher(name: str):
     from repro_torch.kernels import _build
-    fn = getattr(_build.load(name), f"{name}_launch")
+    fn = getattr(_build.load(_SOURCE.get(name, name)), f"{name}_launch")
     fn.argtypes = _SIGNATURES[name]
     fn.restype = ctypes.c_int
     return fn
@@ -307,4 +404,90 @@ def weighted_quantize_accum(x: torch.Tensor, weights: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(status, "weighted_quantize_accum")
     weighted_quantize_accum.launches += 1
+    return out
+
+
+@_counted
+def rotate_quantize_prf(x: torch.Tensor, scale: float, op_key_words,
+                        uniform_key_words, *,
+                        u_offset: int = 0) -> torch.Tensor:
+    """Fused sketch encode: ``q(blockFWHT(signs ⊙ x) · scale)`` -> int32.
+
+    x: (D,) f32, already clipped/weighted; ``op_key_words``: the chunk's
+    compression operator key (the ``TAG_SIGN`` diagonal is regenerated
+    from it at operator-domain position ``e``); ``uniform_key_words``: the
+    stochastic-rounding key, read at ``u_offset + e``.  Returns the full
+    operator-domain (ceil(D/512)·512,) vector, Hadamard pad included.
+    Replaces the Pallas ``rotate_quantize_prf``.
+    """
+    if x.device.type == "cpu":
+        rotate_quantize_prf.plain_calls += 1
+        return rotate_quantize_prf_plain(x, scale, op_key_words,
+                                         uniform_key_words, u_offset=u_offset)
+    _check_cuda(x, "x", torch.float32, 1)
+    (D,) = x.shape
+    full = -(-D // comp.SKETCH_BLOCK) * comp.SKETCH_BLOCK
+    o0, o1 = prf.key_words(op_key_words)
+    u0, u1 = prf.key_words(uniform_key_words)
+    out = torch.empty((full,), dtype=torch.int32, device=x.device)
+    status = _launcher("rotate_quantize_prf")(
+        x.data_ptr(), out.data_ptr(), D, full, comp.sketch_multiplier(scale),
+        o0, o1, u0, u1, int(u_offset) & prf.M32,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(status, "rotate_quantize_prf")
+    rotate_quantize_prf.launches += 1
+    return out
+
+
+def _check_bits(bits: int) -> None:
+    if not 1 <= int(bits) <= 32:
+        raise ValueError(f"residue width {bits} outside 1..32")
+
+
+@_counted
+def pack_residues(q: torch.Tensor, bits: int) -> torch.Tensor:
+    """(D,) int32 residues -> (ceil(D*bits/32),) words as int32 bits.
+
+    Each residue contributes its low ``bits`` bits to the dense
+    little-endian stream.  Replaces the Pallas ``pack_residues``.
+    """
+    _check_bits(bits)
+    if q.device.type == "cpu":
+        pack_residues.plain_calls += 1
+        return pack_residues_plain(q, bits)
+    _check_cuda(q, "q", torch.int32, 1)
+    (D,) = q.shape
+    nwords = -(-D * bits // 32)
+    out = torch.empty((nwords,), dtype=torch.int32, device=q.device)
+    status = _launcher("pack_residues")(
+        q.data_ptr(), out.data_ptr(), D, nwords, int(bits),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(status, "pack_residues")
+    pack_residues.launches += 1
+    return out
+
+
+@_counted
+def unpack_residues(words: torch.Tensor, size: int,
+                    bits: int) -> torch.Tensor:
+    """Inverse of :func:`pack_residues`: words -> (size,) int32 residues.
+
+    Replaces the Pallas ``unpack_residues``.
+    """
+    _check_bits(bits)
+    nwords = -(-size * bits // 32)
+    if words.shape[-1] != nwords:
+        raise ValueError(f"packed stream of {words.shape[-1]} words does not "
+                         f"match {size} residues at {bits}-bit width "
+                         f"(expected {nwords})")
+    if words.device.type == "cpu":
+        unpack_residues.plain_calls += 1
+        return unpack_residues_plain(words, size, bits)
+    _check_cuda(words, "words", torch.int32, 1)
+    out = torch.empty((size,), dtype=torch.int32, device=words.device)
+    status = _launcher("unpack_residues")(
+        words.data_ptr(), out.data_ptr(), size, int(bits),
+        torch.cuda.current_stream(words.device).cuda_stream)
+    _raise_on(status, "unpack_residues")
+    unpack_residues.launches += 1
     return out

@@ -50,6 +50,28 @@ def test_cuda_kernels_match_plain_versions(cuda):
         got = ksa.weighted_quantize_accum(xs, ws, us, SCALE, **kw)
         want = ksa.weighted_quantize_accum_plain(xs, ws, us, SCALE, **kw)
         assert torch.equal(got, want)
+    # K4 at ragged and whole Hadamard blocks, nonzero uniform offsets
+    for D, scale, u_off in ((1, SCALE, 0), (511, 131067.5, 4097),
+                            (100_003, 16777215.6875, 1 << 20)):
+        x = torch.randn(D, generator=g, device=cuda) * 0.01
+        got = ksa.rotate_quantize_prf(x, scale, (0x1234, 0xCB01), UW,
+                                      u_offset=u_off)
+        want = ksa.rotate_quantize_prf_plain(x, scale, (0x1234, 0xCB01), UW,
+                                             u_offset=u_off)
+        assert torch.equal(got, want)
+    # K5 at three widths, a ragged size, both directions
+    for bits in (1, 19, 31):
+        q = torch.randint(0, 2 ** bits, (10_007,), generator=g, device=cuda,
+                          dtype=torch.int64).to(torch.int32)
+        words = ksa.pack_residues(q, bits)
+        assert torch.equal(words, ksa.pack_residues_plain(q, bits))
+        back = ksa.unpack_residues(words, 10_007, bits)
+        assert torch.equal(back, ksa.unpack_residues_plain(words, 10_007,
+                                                           bits))
+        assert torch.equal(back, q)
     assert ksa.counts() == {
         "quantize_mask_prf": {"launches": 3, "plain_calls": 0},
-        "weighted_quantize_accum": {"launches": 3, "plain_calls": 0}}
+        "weighted_quantize_accum": {"launches": 3, "plain_calls": 0},
+        "rotate_quantize_prf": {"launches": 3, "plain_calls": 0},
+        "pack_residues": {"launches": 3, "plain_calls": 0},
+        "unpack_residues": {"launches": 3, "plain_calls": 0}}
