@@ -28,10 +28,26 @@ Phases (each prints its seconds):
      ``subsample`` run (``client``, bits 16, against its ``off`` twin); one
      ``tee_stream`` run with ``enclave_wire_bits=8`` (finite, moved, enclave
      bytes < 0.3 of the raw wire); wire bytes per contribution of each;
+  2c. the serving path: ``python -m repro_torch.launch.serve``'s ``main``
+     at qwen2-1.5b's published width AND depth (28 layers, 1,543,714,304
+     parameters, f32, TF32 off), batch 8, prompt 2048, 32 greedy decode
+     steps (KV cache W = 2080): once plain, once ``--int8``, once
+     ``--window 1024`` (the ring-buffer cache); every step's logits held
+     against a teacher-forced ``apply`` over prompt + generated tokens;
+     prefill and decode ms and tok/s; a ``torch.profiler`` breakdown of 4
+     decode steps of the plain run (device-busy ms, idle share, kernels);
   3. the exact kernel launch counts of each path (and zero plain-version
-     calls);
+     calls): K10 once per layer per decode step of each serve run;
   4. the card's name and power limit, each kernel's time at the main path's
-     largest shape beside its bound and its plain version's time.
+     largest shape beside its bound and its plain version's time; K10's
+     device time (calls queued behind a sleep kernel) at the serve shape
+     and at the decode_32k shape, beside one
+     ``scaled_dot_product_attention`` call on the same inputs.
+
+Phase 1 also holds K10 (``flash_decode``, float attention) to its plain
+version within rtol = atol = 2e-5 (f32 sums in another order): f32 and bf16
+K/V, window 0 and > 0, wrapped ring buffers, partly filled caches, ragged
+W, the serve path's shapes.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it.  Deltas and weights are random, made from ``--seed``.
@@ -68,6 +84,22 @@ EXPECT_PARAMS = 326_970_880
 DELTA_SCALE = 2e-5  # per-element std: a delta's L2 norm is ~0.36 < clip 1.0
 SKETCH_RATE = 0.2  # the builders' rate in results/compression_tradeoff.csv
 EMBED = 151_936 * 1536  # the embedding chunk, the main path's largest
+# phase 2c: the serve CLI at qwen2-1.5b's full width and depth
+SERVE_ARGS = ["--arch", "qwen2-1.5b", "--full", "--batch", "8",
+              "--prompt-len", "2048", "--decode-tokens", "32"]
+SERVE_RUNS = (("full", []), ("int8", ["--int8"]),
+              ("window1024", ["--window", "1024"]))
+SERVE_B, SERVE_S, SERVE_STEPS, SERVE_LAYERS = 8, 2048, 32, 28
+SERVE_PARAMS = 1_543_714_304
+# decode logits vs teacher forcing: f32 with TF32 off, the same weights; the
+# two differ by summation order only (M=8 vs M=16640 products, K10's online
+# softmax vs the chunked prefill softmax) through 28 layers
+TF_ATOL = 1e-3
+# K10 against its plain version (f32 sums in another order)
+FD_TOL = dict(rtol=2e-5, atol=2e-5)
+# K10's timed shapes: (B, W) of the serve path and of decode_32k
+# (configs/shapes.py: batch 128, one qwen2 layer's 32768-deep cache)
+FD_SHAPES = (("serve", 8, 2080), ("decode_32k", 128, 32768))
 
 
 def log(msg: str) -> None:
@@ -201,6 +233,54 @@ def kernel_parity(torch) -> None:
             n += 1
     log(f"  pack_residues/unpack_residues: {n} cases bit-equal to the plain "
         "versions and round-tripped")
+    flash_decode_parity(torch, g)
+
+
+def ring_slots(torch, W: int, pos: int, filled: int):
+    """slot_pos of a ring buffer after positions 0..pos were written at
+    ``p % W``, keeping the last ``filled`` (-1 elsewhere)."""
+    s = torch.arange(W, device="cuda")
+    last = pos - torch.remainder(pos - s, W)
+    keep = (last >= 0) & (last > pos - filled)
+    return torch.where(keep, last, -1).to(torch.int32)
+
+
+def flash_decode_parity(torch, g) -> None:
+    from repro_torch.kernels import flash_decode as kfd
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # B, H, KV, hd, W, K/V dtype, window, pos, filled slots
+        (2, 8, 2, 64, 512, f32, 0, 511, 512),
+        (2, 8, 2, 64, 512, f32, 128, 511, 512),
+        (1, 10, 1, 256, 300, f32, 0, 180, 181),  # ragged W, 2 row groups
+        (2, 4, 4, 32, 100, bf16, 0, 130, 100),  # wrapped ring
+        (2, 4, 4, 32, 100, bf16, 64, 130, 100),  # ... with a window
+        (3, 16, 8, 128, 1000, bf16, 0, 599, 600),  # partly filled
+        (4, 32, 32, 128, 777, f32, 0, 776, 777),  # MHA (rep 1)
+        (1, 4, 2, 128, 7, f32, 0, 6, 7),  # W below one tile
+        (2, 8, 2, 64, 512, f32, 0, 5, 0),  # no valid slot: mean of v
+        (8, 12, 2, 128, 2080, f32, 0, 2048, 2049),  # serve: first step
+        (8, 12, 2, 128, 2080, f32, 0, 2079, 2080),  # serve: last step
+        (8, 12, 2, 128, 2080, bf16, 0, 2079, 2080),
+        (8, 12, 2, 128, 1024, f32, 1024, 2079, 1024),  # --window 1024 ring
+    ]
+    worst = 0.0
+    for B, H, KV, hd, W, dt, window, pos, filled in cases:
+        q = torch.randn(B, H, hd, generator=g, device="cuda") * hd ** -0.5
+        k = torch.randn(B, W, KV, hd, generator=g, device="cuda").to(dt)
+        v = torch.randn(B, W, KV, hd, generator=g, device="cuda").to(dt)
+        slot = ring_slots(torch, W, pos, filled)
+        got = kfd.flash_decode(q, k, v, slot, pos, window=window)
+        want = kfd.flash_decode_plain(q, k, v, slot, pos, window=window)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        check(bool(torch.isfinite(got).all())
+              and torch.allclose(got, want, **FD_TOL),
+              f"flash_decode != plain (B={B} H={H} KV={KV} hd={hd} W={W} "
+              f"{dt} window={window} pos={pos} filled={filled}): max |err| "
+              f"{err:.3g}")
+    log(f"  flash_decode: {len(cases)} cases within rtol=atol=2e-5 of the "
+        f"plain version (max |err| {worst:.3g})")
 
 
 # ---------------------------------------------------------------------------
@@ -209,6 +289,23 @@ def kernel_parity(torch) -> None:
 def _cuda_ms(torch, fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _device_ms(torch, fn, reps: int) -> float:
+    """Device time per call of ``fn``, for calls of tens of microseconds: a
+    sleep kernel (~50 ms) holds the stream while the host enqueues every
+    call, so the host's launch cost does not fall between the events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -425,8 +522,189 @@ def compressed_path(torch, mp: MainPath) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: the serving path at full width and depth
+# ---------------------------------------------------------------------------
+def serve_path(torch, seed: int, counts: dict, smi: str) -> None:
+    """Three runs of the serve CLI; each decode checked against teacher
+    forcing.  ``counts[run]`` gets the kernel counts of each run."""
+    import math
+    from repro_torch import tree as T
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models.model import param_shapes
+    cfg = registry.get_config("qwen2-1.5b", reduced=False)
+    n = sum(math.prod(s) for s in T.leaves(param_shapes(cfg)))
+    check(n == SERVE_PARAMS and cfg.num_layers == SERVE_LAYERS,
+          f"qwen2-1.5b: {n} parameters, {cfg.num_layers} layers")
+    log(f"  qwen2-1.5b at full width and depth: {n:,} parameters, "
+        f"{cfg.num_layers} layers; batch {SERVE_B}, prompt {SERVE_S}, "
+        f"{SERVE_STEPS} decode steps; {smi}")
+    for name, extra in SERVE_RUNS:
+        session = {}
+        reset_counts()
+        rc = serve.main(SERVE_ARGS + extra + ["--seed", str(seed),
+                                              "--device", DEVICE],
+                        session=session)
+        counts[f"serve-{name}"] = kernel_counts()
+        check(rc == 0, f"serve {name}: exit {rc}")
+        gen = session["generation"]
+        check(tuple(gen.tokens.shape) == (SERVE_B, SERVE_STEPS + 1),
+              f"serve {name}: tokens {tuple(gen.tokens.shape)}")
+        check(len(gen.logits) == SERVE_STEPS + 1, "serve: logits kept")
+        # teacher forcing: apply over prompt + generated tokens; the logits
+        # at position S-1+j are the prefill's (j=0) and decode step j's
+        full = torch.cat([session["tokens"], gen.tokens[:, :SERVE_STEPS]], 1)
+        logits, _ = session["model"].apply(session["params"],
+                                           {"tokens": full})
+        want = logits[:, SERVE_S - 1:]
+        del logits
+        got = torch.stack(gen.logits, dim=1)
+        check(bool(torch.isfinite(got).all()), f"serve {name}: non-finite")
+        err = float((got - want).abs().max())
+        top = float(want.abs().max())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        check(err <= TF_ATOL, f"serve {name}: decode logits differ from "
+              f"teacher forcing by {err:.3g} > {TF_ATOL}")
+        decode_ms = gen.decode_s * 1e3 / SERVE_STEPS
+        if name == "full":
+            decode_profile(torch, session, smi)
+        log(f"  serve {name}: prefill {gen.prefill_s * 1e3:.1f} ms "
+            f"({SERVE_B * SERVE_S / gen.prefill_s:.0f} tok/s); decode "
+            f"{decode_ms:.2f} ms/step ({SERVE_B * 1e3 / decode_ms:.0f} "
+            f"tok/s); teacher-forced max |dlogit| {err:.3g} (|logit| <= "
+            f"{top:.3g}, argmax agreement {agree:.3f}) over "
+            f"{SERVE_STEPS + 1} positions; {smi}")
+        del session, gen, got, want, full
+        torch.cuda.empty_cache()
+
+
+def decode_profile(torch, session: dict, smi: str, steps: int = 4) -> None:
+    """``torch.profiler`` over ``steps`` decode steps of a served run (after
+    a fresh prefill): host ms per step, device-busy ms per step (the sum of
+    kernel times; one stream), the idle share and the kernels by device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    model, params = session["model"], session["params"]
+    gen = session["generation"]
+    _, cache = model.prefill(params, {"tokens": session["tokens"]},
+                             SERVE_S + SERVE_STEPS)
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            _, cache = model.decode_step(params, cache,
+                                         gen.tokens[:, i:i + 1], SERVE_S + i)
+        sync(torch)
+        host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    del cache
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((us / 1e3 / steps, e.count / steps, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    if not rows:
+        log("  decode profile: the profiler saw no device time")
+        return
+    k10 = sum(r[0] for r in rows if "flash_decode" in r[2])
+    log(f"  decode profile ({steps} steps, B={SERVE_B}, "
+        f"W={SERVE_S + SERVE_STEPS}): {host_ms:.2f} ms per step on the host clock, device busy "
+        f"{busy:.3f} ms per step ({sum(r[1] for r in rows):.0f} kernels), "
+        f"idle share {1 - busy / host_ms:.3f}; K10 {k10:.3f} ms per step; "
+        f"{smi}")
+    for ms, n, key in rows[:8]:
+        log(f"    {ms:8.3f} ms/step  x{n:5.0f}  {key[:90]}")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel times at the main path's largest shape
 # ---------------------------------------------------------------------------
+def _cycled(fn, n: int):
+    """fn(0), fn(1), ... fn(n-1), fn(0), ... on successive calls."""
+    state = [0]
+
+    def call():
+        i = state[0] % n
+        state[0] += 1
+        return fn(i)
+    return call
+
+
+def flash_decode_times(torch, launches: int) -> dict:
+    """K10 at the serve shape and decode_32k: kernel, plain version, one
+    ``scaled_dot_product_attention`` call; bound by bytes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as kfd
+    H, KV, hd = 12, 2, 128
+    g = torch.Generator(device="cuda").manual_seed(3)
+    res = {}
+    for shape, B, W in FD_SHAPES:
+        # the serve path reads each layer's 34 MB cache cold (the weights
+        # stream between layers); 8 copies exceed the 50 MB L2
+        nbuf = 8 if shape == "serve" else 1
+        q = torch.randn(B, H, hd, generator=g, device="cuda") * hd ** -0.5
+        ks = [torch.randn(B, W, KV, hd, generator=g, device="cuda")
+              for _ in range(nbuf)]
+        vs = [torch.randn(B, W, KV, hd, generator=g, device="cuda")
+              for _ in range(nbuf)]
+        slot = torch.arange(W, device="cuda", dtype=torch.int32)
+        pos = W - 1
+        got = kfd.flash_decode(q, ks[0], vs[0], slot, pos)
+        want = kfd.flash_decode_plain(q, ks[0], vs[0], slot, pos)
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, **FD_TOL),
+              f"flash_decode != plain at {shape}: {err:.3g}")
+        # the library yardstick: the rep query heads of a kv head as the
+        # query length of one SDPA over (B, KV) heads; mask from slot_pos
+        mask = ((slot >= 0) & (slot <= pos)).view(1, 1, 1, W)
+
+        def sdpa(i):
+            return F.scaled_dot_product_attention(
+                q.view(B, KV, H // KV, hd), ks[i].permute(0, 2, 1, 3),
+                vs[i].permute(0, 2, 1, 3), attn_mask=mask, scale=1.0)
+        lib_err = float((sdpa(0).reshape(B, H, hd) - want).abs().max())
+        del got, want
+        reps = 50 if shape == "serve" else 10
+        kernel = _cycled(lambda i: kfd.flash_decode(q, ks[i], vs[i], slot,
+                                                    pos), nbuf)
+        ms = _device_ms(torch, kernel, reps)
+        call_ms = _cuda_ms(torch, kernel, reps)  # host launch cost included
+        plain_ms = _device_ms(torch, _cycled(
+            lambda i: kfd.flash_decode_plain(q, ks[i], vs[i], slot, pos),
+            nbuf), 3)
+        lib_ms = _device_ms(torch, _cycled(sdpa, nbuf), reps)
+        nbytes = 2 * B * W * KV * hd * 4 + 2 * B * H * hd * 4 + W * 4
+        # two products, and mask/max/exp/sum per score
+        ops = 4 * B * H * W * hd + 5 * B * H * W
+        e = _entry("flash_decode",
+                   "src/repro_torch/kernels/csrc/flash_decode.cu",
+                   "src/repro/kernels/flash_decode.py:62", launches, ms,
+                   plain_ms, ops, nbytes, max_abs_err=err, library_ms=lib_ms)
+        e["library_max_abs_err"] = lib_err
+        nsplit, _ = kfd.splits(B, KV, H // KV, W)
+        log(f"  flash_decode {shape} (B={B} H={H} KV={KV} hd={hd} W={W}, "
+            f"f32, {nsplit} splits): {ms:.4f} ms on the device, "
+            f"{call_ms:.4f} ms per call back to back (bound "
+            f"{e['bound_ms']:.4f} ms by {e['bound_by']}); plain "
+            f"{plain_ms:.3f} ms; SDPA "
+            f"{lib_ms:.4f} ms (max |err| {lib_err:.3g}); kernel max |err| "
+            f"{err:.3g}")
+        res[shape] = e
+        del q, ks, vs, slot
+        torch.cuda.empty_cache()
+    entry = dict(res["serve"])
+    entry["decode_32k"] = {k: res["decode_32k"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err")}
+    return entry
+
+
 def kernel_times(torch, counts) -> list:
     from repro_torch.kernels import prf
     from repro_torch.kernels import secure_agg as ksa
@@ -571,14 +849,29 @@ def kernel_times(torch, counts) -> list:
     return out
 
 
-def _entry(name, source, replaces, launches, ms, plain_ms, ops, nbytes):
+def _entry(name, source, replaces, launches, ms, plain_ms, ops, nbytes, *,
+           max_abs_err=0, library_ms=None):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / OPS_PER_S * 1e3
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": 0,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": library_ms}
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels import secure_agg as ksa
+    ksa.reset_counts()
+    kfd.reset_counts()
+
+
+def kernel_counts() -> dict:
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels import secure_agg as ksa
+    return {**ksa.counts(), **kfd.counts()}
 
 
 def main() -> int:
@@ -595,12 +888,16 @@ def main() -> int:
             "the repository")
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels import secure_agg as ksa
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    smi = smi[0] if smi else "nvidia-smi: no output"
 
     with Phase("phase 1: build + kernel parity"):
         build_kernels()
@@ -609,16 +906,19 @@ def main() -> int:
     with Phase("phase 2: main path at full width"):
         from repro_torch.configs import qwen2_1_5b
         mp = MainPath(torch, args.seed, qwen2_1_5b.CONFIG)
-        ksa.reset_counts()
+        reset_counts()
         main_path(torch, mp)
-        counts = {"uncompressed": ksa.counts()}
+        counts = {"uncompressed": kernel_counts()}
 
     with Phase("phase 2b: compressed uploads and the enclave wire"):
-        ksa.reset_counts()
+        reset_counts()
         compressed_path(torch, mp)
-        counts["compressed"] = ksa.counts()
+        counts["compressed"] = kernel_counts()
         del mp
         torch.cuda.empty_cache()
+
+    with Phase("phase 2c: serving qwen2-1.5b at full width and depth"):
+        serve_path(torch, args.seed, counts, smi)
 
     with Phase("phase 3: kernels on the main path"):
         # launches per path: one per chunk of every push (or flush) that
@@ -642,6 +942,12 @@ def main() -> int:
                            "pack_residues": 3 * per_run,
                            "unpack_residues": 3 * per_run},
         }
+        for path in ("uncompressed", "compressed"):
+            want[path]["flash_decode"] = 0
+        # serving: K10 once per layer per decode step, nothing else
+        for name, _ in SERVE_RUNS:
+            want[f"serve-{name}"] = dict.fromkeys(want["compressed"], 0)
+            want[f"serve-{name}"]["flash_decode"] = SERVE_LAYERS * SERVE_STEPS
         launches = {}
         for path, got in counts.items():
             runs = {k: v["launches"] for k, v in got.items()}
@@ -658,14 +964,11 @@ def main() -> int:
               f"a kernel never launched on the main path: {launches}")
 
     with Phase("phase 4: device and kernel times"):
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip().splitlines()
         entries = kernel_times(torch, launches)
+        entries.append(flash_decode_times(torch, launches["flash_decode"]))
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+    print(smi, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,9 @@ module imports neither JAX nor the JAX package:
 
   ``params_from_numpy``      a parameter tree (nested dicts of arrays) ->
                              the port's dict of f32 tensors on ``device``;
+  ``cache_from_numpy``       a decode cache (nested dicts of ``k``/``v``/
+                             ``pos`` arrays, stacked or per layer) -> the
+                             port's cache (``pos`` int32);
   ``server_state_from_numpy`` a server-optimizer state (``step``, and
                              FedAvgM/FedAdam/FedAdagrad moments) -> tensors;
   ``key_from_numpy``         a JAX PRNG key (its 2 uint32 words) ->
@@ -32,6 +35,15 @@ def _tensor(x, device, dtype=None) -> torch.Tensor:
 def params_from_numpy(params, device="cpu"):
     """Nested dict of arrays -> nested dict of tensors (dtype kept)."""
     return T.tree_map(lambda x: _tensor(x, device), params)
+
+
+def cache_from_numpy(cache, device="cpu"):
+    """A JAX decode cache -> the port's (same tree and layout; ``k``/``v``
+    keep their dtype, ``pos`` is int32)."""
+    paths, leaves = T.flatten(cache)
+    return T.unflatten(paths, [
+        _tensor(x, device, torch.int32 if path[-1] == "pos" else None)
+        for path, x in zip(paths, leaves)])
 
 
 def server_state_from_numpy(state, device="cpu"):

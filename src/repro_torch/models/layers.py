@@ -1,0 +1,312 @@
+"""Shared transformer layers: norms, RoPE, GQA attention, MLPs, embeddings.
+
+Port of ``repro.models.layers`` for the decoder families.  Layers are
+functions ``(cfg, params, x, ...) -> y`` over nested dicts of tensors, with
+the JAX package's layouts at every public function: activations
+``(B, S, d)``, heads ``(B, S, H, hd)``, a KV cache
+``{'k': (B, W, KV, hd), 'v': ..., 'pos': (W,) int32}``.
+
+The large products (QKV, output, MLP, unembed) and the chunked prefill
+attention are plain PyTorch, as the reference leaves them to XLA; the
+decode attention runs the K10 kernel (``kernels.flash_decode``) on CUDA
+tensors.  Unlike the reference, the KV-cache functions update the cache
+IN PLACE and return the same dict.  Cross attention (the encoder-decoder
+family) is not ported yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import flash_decode as K
+
+# Query-chunk size for memory-safe attention (linear-in-queries score memory).
+ATTN_QUERY_CHUNK = 512
+_F32_MIN = torch.finfo(torch.float32).min
+
+
+# ---------------------------------------------------------------------------
+# Parameter draws (the model's init)
+# ---------------------------------------------------------------------------
+def init_scale(cfg, name: str) -> float:
+    """The std of a weight leaf's normal init, 0 for zeros, -1 for ones."""
+    d, f = cfg.d_model, cfg.d_ff
+    if name in ("bq", "bk", "bv", "bias"):
+        return 0.0
+    if name == "scale":
+        return -1.0
+    if name == "pos_embed":
+        return 0.02
+    if name in ("wq", "wk", "wv", "w_in", "w_gate", "embed", "unembed"):
+        return 1.0 / math.sqrt(d)
+    if name == "wo":
+        return 1.0 / math.sqrt(cfg.num_heads * cfg.head_dim)
+    if name == "w_out":
+        return 1.0 / math.sqrt(f)
+    raise KeyError(name)
+
+
+def draw(cfg, shapes, generator: torch.Generator, device):
+    """Random f32 leaves for a tree of ``torch.Size`` (sorted-key order):
+    normal * the reference's per-leaf scale, zero biases, unit norm scales."""
+    from repro_torch import tree as T
+    paths, sizes = T.flatten(shapes)
+    leaves = []
+    for path, size in zip(paths, sizes):
+        s = init_scale(cfg, path[-1])
+        if s == 0.0:
+            leaves.append(torch.zeros(size, dtype=torch.float32, device=device))
+        elif s < 0.0:
+            leaves.append(torch.ones(size, dtype=torch.float32, device=device))
+        else:
+            leaves.append(torch.randn(size, generator=generator,
+                                      dtype=torch.float32, device=device) * s)
+    return T.unflatten(paths, leaves)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def norm_shapes(cfg, d: int, lead=()):
+    p = {"scale": torch.Size(tuple(lead) + (d,))}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.Size(tuple(lead) + (d,))
+    return p
+
+
+def init_norm(cfg, d: int, device=None):
+    p = {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(d, dtype=torch.float32, device=device)
+    return p
+
+
+def apply_norm(cfg, p, x, eps: float = 1e-6):
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    else:  # rmsnorm
+        ms = xf.square().mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + eps) * p["scale"]
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (half-rotation / NeoX convention)
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None):
+    half = head_dim // 2
+    return theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=device) / half)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, n_heads, head_dim); positions: broadcastable to (..., S)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs  # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+def attention_shapes(cfg, lead=()):
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    shapes = {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd),
+              "wo": (h, hd, d)}
+    if cfg.qkv_bias:
+        shapes.update({"bq": (h, hd), "bk": (kv, hd), "bv": (kv, hd)})
+    return {k: torch.Size(tuple(lead) + v) for k, v in shapes.items()}
+
+
+def _qkv(cfg, p, x, positions, use_rope: bool):
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    k = torch.einsum("bsd,dgk->bsgk", x, p["wk"].to(dt))
+    v = torch.einsum("bsd,dgk->bsgk", x, p["wv"].to(dt))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _grouped_scores(q, k):
+    """q: (B,Q,H,hd)  k: (B,S,KV,hd)  ->  (B,KV,rep,Q,S) grouped GQA scores."""
+    B, Q, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Q, KV, H // KV, hd)
+    return torch.einsum("bqgrk,bsgk->bgrqs", qg, k)
+
+
+def _grouped_out(probs, v):
+    """probs: (B,KV,rep,Q,S)  v: (B,S,KV,hd)  ->  (B,Q,H,hd)."""
+    B, KV, rep, Q, S = probs.shape
+    out = torch.einsum("bgrqs,bsgk->bqgrk", probs, v)
+    return out.reshape(B, Q, KV * rep, v.shape[-1])
+
+
+def attention(cfg, p, x, positions, *, causal: bool = True,
+              window: Optional[int] = None, return_kv: bool = False):
+    """Training/prefill attention, chunked over queries (memory-safe).
+
+    return_kv: also return the (k, v) computed here (prefill cache fill).
+    """
+    B, S, _ = x.shape
+    q, k, v = _qkv(cfg, p, x, positions, cfg.pos_emb == "rope")
+    q = q * cfg.head_dim ** -0.5
+
+    chunk = cfg.attn_q_chunk or ATTN_QUERY_CHUNK
+    if S % chunk != 0:
+        chunk = S
+    outs = []
+    for c0 in range(0, S, chunk):
+        qpos = positions[c0:c0 + chunk]
+        scores = _grouped_scores(q[:, c0:c0 + chunk], k).float()
+        if causal:
+            mask = qpos[:, None] >= positions[None, :]
+            if window is not None:
+                mask &= (qpos[:, None] - positions[None, :]) < window
+            scores.masked_fill_(~mask, _F32_MIN)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        del scores
+        outs.append(_grouped_out(probs, v))  # (B, chunk, H, hd)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def fill_kv_cache(cfg, cache, k, v, positions):
+    """Write prefill (k, v) at ``positions`` into a fresh cache (full or
+    ring), in place; returns ``cache``."""
+    S = k.shape[1]
+    W = cache["k"].shape[1]
+    if W >= S:  # full cache: contiguous write
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+        cache["pos"][:S] = positions
+        return cache
+    # ring buffer: keep the last W entries at slot = pos % W
+    tail_pos = positions[S - W:]
+    slots = (tail_pos % W).long()
+    cache["k"].index_copy_(1, slots, k[:, S - W:].to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slots, v[:, S - W:].to(cache["v"].dtype))
+    cache["pos"].index_copy_(0, slots, tail_pos.to(torch.int32))
+    return cache
+
+
+def attention_decode(cfg, p, x, cache, pos: int, *,
+                     window: Optional[int] = None):
+    """Single-token decode against a (ring-buffer or full) KV cache.
+
+    x: (B, 1, d); cache: {'k': (B, W, KV, hd), 'v': ..., 'pos': (W,) int32};
+    pos: absolute position of the new token (a Python int).  Writes the
+    new k/v/pos at slot ``pos`` (``pos % W`` when windowed) IN PLACE, then
+    runs K10 over the cache.  Returns (out (B,1,d), cache).
+    """
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _qkv(cfg, p, x, positions, cfg.pos_emb == "rope")
+    q = q * cfg.head_dim ** -0.5
+
+    W = cache["k"].shape[1]
+    slot = pos if window is None else pos % W  # ring buffer when windowed
+    cache["k"][:, slot] = k_new[:, 0]
+    cache["v"][:, slot] = v_new[:, 0]
+    cache["pos"][slot] = pos
+
+    out = K.flash_decode(q[:, 0].float().contiguous(), cache["k"],
+                         cache["v"], cache["pos"], pos, window=window or 0)
+    out = out.to(x.dtype)[:, None]  # (B, 1, H, hd)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), cache
+
+
+def init_kv_cache(cfg, batch_size: int, max_len: int, dtype=torch.float32,
+                  device=None):
+    W = max_len if cfg.attention_window is None \
+        else min(cfg.attention_window, max_len)
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch_size, W, kv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch_size, W, kv, hd), dtype=dtype, device=device),
+        "pos": torch.full((W,), -1, dtype=torch.int32, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+def mlp_shapes(cfg, d_ff: int, lead=()):
+    d = cfg.d_model
+    shapes = {"w_in": (d, d_ff), "w_out": (d_ff, d)}
+    if cfg.mlp_act == "swiglu":
+        shapes["w_gate"] = (d, d_ff)
+    return {k: torch.Size(tuple(lead) + v) for k, v in shapes.items()}
+
+
+def apply_mlp(cfg, p, x):
+    dt = x.dtype
+    h = x @ p["w_in"].to(dt)
+    if cfg.mlp_act == "swiglu":
+        h = F.silu(x @ p["w_gate"].to(dt)) * h
+    elif cfg.mlp_act == "relu2":
+        h = torch.square(torch.relu(h))
+    elif cfg.mlp_act == "gelu":
+        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+    else:
+        raise ValueError(cfg.mlp_act)
+    return h @ p["w_out"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Embeddings / heads
+# ---------------------------------------------------------------------------
+def embedding_shapes(cfg):
+    p = {"embed": torch.Size((cfg.vocab_size, cfg.d_model))}
+    if not cfg.tie_embeddings:
+        p["unembed"] = torch.Size((cfg.d_model, cfg.vocab_size))
+    if cfg.pos_emb == "learned":
+        p["pos_embed"] = torch.Size((cfg.max_seq_len, cfg.d_model))
+    return p
+
+
+def embed_tokens(cfg, p, tokens, dtype):
+    x = p["embed"].to(dtype)[tokens]
+    if cfg.family == "hybrid":  # gemma lineage scales embeddings
+        x = x * math.sqrt(cfg.d_model)
+    return x
+
+
+def unembed(cfg, p, x):
+    if cfg.tie_embeddings:
+        return x @ p["embed"].to(x.dtype).T
+    return x @ p["unembed"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def cross_entropy(logits, labels, mask=None):
+    """Mean masked token cross-entropy, computed in f32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -1,15 +1,25 @@
-"""Model parameters of the dense family (port of ``repro.models.model``).
+"""Model facade of the dense decoder family (port of ``repro.models.model``).
 
-The aggregation server only needs the model's parameter TREE — the deltas it
-aggregates have the same leaves.  ``param_shapes`` gives the exact leaf
-paths and shapes of ``build_model(cfg).init`` in the JAX package, and
-``init_params`` draws random weights of those shapes with the same
-per-leaf scales (normal * 1/sqrt(fan_in), zero biases, unit norm scales)
-from a ``torch.Generator``.  Only the dense family is ported.
+``build_model(cfg)`` returns a ``Model`` with the reference's interface:
 
-Layout (dense, ``num_layers > 1``): the layers are stacked under
-``stack.scan`` with the layer axis leading, as the JAX ``vmap``-ed init
-produces them::
+  init(generator)                   -> params
+  apply(params, batch)              -> (logits, aux)
+  loss_fn(params, batch)            -> (loss, metrics)
+  init_cache(batch_size, max_len)   -> decode cache
+  prefill(params, batch, max_len)   -> (logits, cache)
+  decode_step(params, cache, tokens, pos) -> (logits, cache)
+
+Only ``family="dense"`` is ported (qwen2-1.5b, deepseek-7b,
+deepseek-coder-33b, minitron-4b); the other families raise
+``NotImplementedError``.  ``decode_step`` updates the cache in place (and
+returns it); ``pos`` is a Python int.
+
+``param_shapes`` gives the exact leaf paths and shapes of the JAX init and
+``init_params`` draws random weights of those shapes with the same per-leaf
+scales (normal * 1/sqrt(fan_in), zero biases, unit norm scales) from a
+``torch.Generator``.  Layout (dense, ``num_layers > 1``): the layers are
+stacked under ``stack.scan`` with the layer axis leading, as the JAX
+``vmap``-ed init produces them::
 
   embedding.embed                       (vocab, d)
   final_norm.scale                      (d,)
@@ -22,77 +32,38 @@ produces them::
 """
 from __future__ import annotations
 
-import math
-from typing import Dict
+from typing import Any, Callable, Dict, NamedTuple
 
 import torch
 
 from repro_torch import device as _device
-from repro_torch import tree as T
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 
 
-def _norm_shapes(cfg, lead) -> Dict:
-    p = {"scale": torch.Size(lead + (cfg.d_model,))}
-    if cfg.norm == "layernorm":
-        p["bias"] = torch.Size(lead + (cfg.d_model,))
-    return p
+class Model(NamedTuple):
+    cfg: Any
+    init: Callable
+    apply: Callable
+    loss_fn: Callable
+    init_cache: Callable
+    prefill: Callable
+    decode_step: Callable
 
 
-def _block_shapes(cfg, lead) -> Dict:
-    d, h, kv, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                       cfg.head_dim, cfg.d_ff)
-    attn = {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd),
-            "wo": (h, hd, d)}
-    if cfg.qkv_bias:
-        attn.update({"bq": (h, hd), "bk": (kv, hd), "bv": (kv, hd)})
-    mlp = {"w_in": (d, f), "w_out": (f, d)}
-    if cfg.mlp_act == "swiglu":
-        mlp["w_gate"] = (d, f)
-    return {
-        "norm1": _norm_shapes(cfg, lead),
-        "attn": {k: torch.Size(lead + v) for k, v in attn.items()},
-        "norm2": _norm_shapes(cfg, lead),
-        "mlp": {k: torch.Size(lead + v) for k, v in mlp.items()},
-    }
+def _check_dense(cfg, what: str) -> None:
+    if cfg.family != "dense" or cfg.block_pattern is not None:
+        raise NotImplementedError(
+            f"{what}: only the dense family is ported (got {cfg.family!r}); "
+            "moe, ssm, hybrid, vlm and audio are ROADMAP Queue 1, item 11")
 
 
 def param_shapes(cfg) -> Dict:
     """Nested dict of ``torch.Size`` — the JAX init's tree, leaf for leaf."""
-    if cfg.family != "dense" or cfg.block_pattern is not None:
-        raise NotImplementedError(
-            f"param_shapes: only the dense family is ported (got "
-            f"{cfg.family!r})")
-    emb = {"embed": torch.Size((cfg.vocab_size, cfg.d_model))}
-    if not cfg.tie_embeddings:
-        emb["unembed"] = torch.Size((cfg.d_model, cfg.vocab_size))
-    if cfg.pos_emb == "learned":
-        emb["pos_embed"] = torch.Size((cfg.max_seq_len, cfg.d_model))
-    if cfg.num_layers > 1:
-        stack = {"scan": _block_shapes(cfg, (cfg.num_layers,))}
-    else:
-        stack = {f"layer_{i}": _block_shapes(cfg, ())
-                 for i in range(cfg.num_layers)}
-    return {"embedding": emb, "stack": stack,
-            "final_norm": _norm_shapes(cfg, ())}
-
-
-def _init_scale(cfg, path) -> float:
-    """The std of a weight leaf's normal init, 0 for zeros, -1 for ones."""
-    name = path[-1]
-    d, f = cfg.d_model, cfg.d_ff
-    if name in ("bq", "bk", "bv", "bias"):
-        return 0.0
-    if name == "scale":
-        return -1.0
-    if name == "pos_embed":
-        return 0.02
-    if name in ("wq", "wk", "wv", "w_in", "w_gate", "embed", "unembed"):
-        return 1.0 / math.sqrt(d)
-    if name == "wo":
-        return 1.0 / math.sqrt(cfg.num_heads * cfg.head_dim)
-    if name == "w_out":
-        return 1.0 / math.sqrt(f)
-    raise KeyError(name)
+    _check_dense(cfg, "param_shapes")
+    return {"embedding": L.embedding_shapes(cfg),
+            "stack": T.stack_shapes(cfg),
+            "final_norm": L.norm_shapes(cfg, cfg.d_model)}
 
 
 def init_params(cfg, generator: torch.Generator, device=None) -> Dict:
@@ -101,16 +72,59 @@ def init_params(cfg, generator: torch.Generator, device=None) -> Dict:
     ``generator`` must live on ``device``.  The numbers differ from the JAX
     init (another generator); shapes, tree and scales match it.
     """
+    return L.draw(cfg, param_shapes(cfg), generator, _device.resolve(device))
+
+
+def _embed_inputs(cfg, params, batch, dtype):
+    emb = params["embedding"]
+    x = L.embed_tokens(cfg, emb, batch["tokens"], dtype)
+    if cfg.pos_emb == "learned":
+        x = x + emb["pos_embed"][: x.shape[1]].to(dtype)
+    return x
+
+
+def build_model(cfg, *, device=None) -> Model:
+    """The dense family's model on ``device`` (default the GPU): ``init`` and
+    ``init_cache`` allocate there; the other functions run where their
+    inputs are."""
+    _check_dense(cfg, "build_model")
     dev = _device.resolve(device)
-    paths, shapes = T.flatten(param_shapes(cfg))
-    leaves = []
-    for path, shape in zip(paths, shapes):
-        s = _init_scale(cfg, path)
-        if s == 0.0:
-            leaves.append(torch.zeros(shape, dtype=torch.float32, device=dev))
-        elif s < 0.0:
-            leaves.append(torch.ones(shape, dtype=torch.float32, device=dev))
-        else:
-            leaves.append(torch.randn(shape, generator=generator,
-                                      dtype=torch.float32, device=dev) * s)
-    return T.unflatten(paths, leaves)
+    dtype = getattr(torch, cfg.compute_dtype)
+
+    def init(generator: torch.Generator):
+        return init_params(cfg, generator, dev)
+
+    def apply(params, batch):
+        x = _embed_inputs(cfg, params, batch, dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, aux = T.apply_stack(cfg, params["stack"], x, positions)
+        x = L.apply_norm(cfg, params["final_norm"], x)
+        return L.unembed(cfg, params["embedding"], x), aux
+
+    def loss_fn(params, batch):
+        logits, aux = apply(params, batch)
+        labels = batch.get("labels", batch["tokens"])
+        ce = L.cross_entropy(logits, labels, batch.get("loss_mask"))
+        return ce + aux, {"ce": ce, "aux": aux}
+
+    def init_cache(batch_size, max_len):
+        return T.init_stack_cache(cfg, batch_size, max_len, dtype, dev)
+
+    def prefill(params, batch, max_len):
+        x = _embed_inputs(cfg, params, batch, dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, cache = T.prefill_stack(cfg, params["stack"], x, positions,
+                                   max_len, dtype)
+        x = L.apply_norm(cfg, params["final_norm"], x[:, -1:])
+        return L.unembed(cfg, params["embedding"], x), cache
+
+    def decode_step(params, cache, tokens, pos: int):
+        emb = params["embedding"]
+        x = L.embed_tokens(cfg, emb, tokens, dtype)
+        if cfg.pos_emb == "learned":
+            x = x + emb["pos_embed"][pos:pos + 1].to(dtype)[None]
+        x, cache = T.decode_stack(cfg, params["stack"], x, cache, pos)
+        x = L.apply_norm(cfg, params["final_norm"], x)
+        return L.unembed(cfg, emb, x), cache
+
+    return Model(cfg, init, apply, loss_fn, init_cache, prefill, decode_step)

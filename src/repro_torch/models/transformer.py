@@ -1,0 +1,177 @@
+"""Decoder stacks: block init/apply/prefill/decode and the layer-stack layout.
+
+Port of ``repro.models.transformer`` for the dense block kinds (``attn``,
+``local_attn``); the moe, ssm and rglru kinds raise ``NotImplementedError``
+until their slices land (ROADMAP Queue 1, item 11).
+
+The stack layout is the reference's: a homogeneous stack deeper than one
+layer (``_is_scannable``) keeps its layers' parameters and caches stacked
+under ``scan`` with the layer axis leading, after ``layer_{i}`` entries for
+any ``first_k_dense`` head; other stacks are ``layer_{i}`` throughout.  A
+Python loop over the layer axis (views, no copies) replaces ``lax.scan``.
+Decode caches are updated in place.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import torch
+
+from repro_torch import tree as T
+from repro_torch.models import layers as L
+
+_DENSE_KINDS = ("attn", "local_attn")
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in _DENSE_KINDS:
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported yet (ROADMAP Queue 1, item "
+            f"11); the port runs {_DENSE_KINDS}")
+
+
+def _window(cfg, kind: str):
+    return cfg.attention_window \
+        if (kind == "local_attn" or cfg.attention_window) else None
+
+
+# ---------------------------------------------------------------------------
+# Single blocks
+# ---------------------------------------------------------------------------
+def block_shapes(cfg, kind: str, lead=()) -> Dict:
+    """The parameter tree of one block as ``torch.Size`` leaves; ``lead``
+    prefixes every shape (the stacked layer axis)."""
+    _check_kind(kind)
+    return {
+        "norm1": L.norm_shapes(cfg, cfg.d_model, lead),
+        "attn": L.attention_shapes(cfg, lead),
+        "norm2": L.norm_shapes(cfg, cfg.d_model, lead),
+        "mlp": L.mlp_shapes(cfg, cfg.d_ff, lead),
+    }
+
+
+def init_block(cfg, kind: str, generator: torch.Generator, device=None):
+    return L.draw(cfg, block_shapes(cfg, kind), generator, device)
+
+
+def apply_block(cfg, p, x, positions, kind: str):
+    """(B,S,d) -> ((B,S,d), aux_loss)."""
+    _check_kind(kind)
+    h = L.attention(cfg, p["attn"], L.apply_norm(cfg, p["norm1"], x),
+                    positions, window=_window(cfg, kind))
+    x = x + h
+    x = x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def init_block_cache(cfg, kind: str, batch_size: int, max_len: int, dtype,
+                     device=None):
+    _check_kind(kind)
+    return L.init_kv_cache(cfg, batch_size, max_len, dtype, device)
+
+
+def prefill_block(cfg, p, x, positions, kind: str, batch_size: int,
+                  max_len: int, dtype, *, cache=None):
+    """apply_block that also fills a decode cache (``cache`` in place, else
+    a new one).  Returns (x, cache)."""
+    _check_kind(kind)
+    h, (k, v) = L.attention(cfg, p["attn"], L.apply_norm(cfg, p["norm1"], x),
+                            positions, window=_window(cfg, kind),
+                            return_kv=True)
+    x = x + h
+    if cache is None:
+        cache = L.init_kv_cache(cfg, batch_size, max_len, dtype, x.device)
+    L.fill_kv_cache(cfg, cache, k, v, positions)
+    del k, v
+    x = x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+    return x, cache
+
+
+def decode_block(cfg, p, x, cache, pos: int, kind: str):
+    """x: (B,1,d) -> ((B,1,d), cache updated in place)."""
+    _check_kind(kind)
+    h, cache = L.attention_decode(cfg, p["attn"],
+                                  L.apply_norm(cfg, p["norm1"], x), cache,
+                                  pos, window=_window(cfg, kind))
+    x = x + h
+    x = x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# Stacks
+# ---------------------------------------------------------------------------
+def _is_scannable(cfg) -> bool:
+    kinds = cfg.layer_kinds
+    tail = kinds[cfg.first_k_dense:]
+    return cfg.block_pattern is None and len(set(tail)) == 1 and len(tail) > 1
+
+
+def _layers(cfg, tree) -> Iterator[Tuple[str, Dict]]:
+    """(kind, one layer's subtree) in stack order; a stacked layer's leaves
+    are views into the ``scan`` tensors."""
+    kinds = cfg.layer_kinds
+    if not _is_scannable(cfg):
+        for i, kind in enumerate(kinds):
+            yield kind, tree[f"layer_{i}"]
+        return
+    for i in range(cfg.first_k_dense):
+        yield kinds[i], tree[f"layer_{i}"]
+    for j in range(cfg.num_layers - cfg.first_k_dense):
+        yield kinds[-1], T.tree_map(lambda a: a[j], tree["scan"])
+
+
+def _stack_tree(cfg, one) -> Dict:
+    """{layer_i / scan: one(kind, lead)} in the stack's layout."""
+    kinds = cfg.layer_kinds
+    if not _is_scannable(cfg):
+        return {f"layer_{i}": one(kind, ()) for i, kind in enumerate(kinds)}
+    tree = {f"layer_{i}": one(kinds[i], ())
+            for i in range(cfg.first_k_dense)}
+    tree["scan"] = one(kinds[-1], (cfg.num_layers - cfg.first_k_dense,))
+    return tree
+
+
+def stack_shapes(cfg) -> Dict:
+    return _stack_tree(cfg, lambda kind, lead: block_shapes(cfg, kind, lead))
+
+
+def init_stack(cfg, generator: torch.Generator, device=None) -> Dict:
+    return L.draw(cfg, stack_shapes(cfg), generator, device)
+
+
+def apply_stack(cfg, p, x, positions):
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, lp in _layers(cfg, p):
+        x, aux = apply_block(cfg, lp, x, positions, kind)
+        aux_total = aux_total + aux
+    return x, aux_total
+
+
+def init_stack_cache(cfg, batch_size: int, max_len: int,
+                     dtype=torch.float32, device=None) -> Dict:
+    def one(kind, lead):
+        c = init_block_cache(cfg, kind, batch_size, max_len, dtype, device)
+        if not lead:
+            return c
+        return {k: t.expand(lead + tuple(t.shape)).clone()
+                for k, t in c.items()}
+    return _stack_tree(cfg, one)
+
+
+def prefill_stack(cfg, p, x, positions, max_len: int, dtype=torch.float32):
+    """Run the stack over a prompt, returning (x, cache) for decode."""
+    B = x.shape[0]
+    cache = init_stack_cache(cfg, B, max_len, dtype, x.device)
+    for (kind, lp), (_, lc) in zip(_layers(cfg, p), _layers(cfg, cache)):
+        x, _ = prefill_block(cfg, lp, x, positions, kind, B, max_len, dtype,
+                             cache=lc)
+    return x, cache
+
+
+def decode_stack(cfg, p, x, cache, pos: int):
+    """One token through the stack; ``cache`` is updated in place and
+    returned."""
+    for (kind, lp), (_, lc) in zip(_layers(cfg, p), _layers(cfg, cache)):
+        x, _ = decode_block(cfg, lp, x, lc, pos, kind)
+    return x, cache

@@ -9,9 +9,13 @@ machine without them:
 import pytest
 import torch
 
+from repro_torch.configs import registry
 from repro_torch.core.fl import secure_agg as sa
+from repro_torch.kernels import flash_decode as kfd
 from repro_torch.kernels import prf
 from repro_torch.kernels import secure_agg as ksa
+from repro_torch.launch import serve
+from repro_torch.models.model import build_model
 
 SCALE = 1.0e4 / 3.0
 UW = (77, 0xDEADBEEF)
@@ -75,3 +79,49 @@ def test_cuda_kernels_match_plain_versions(cuda):
         "rotate_quantize_prf": {"launches": 3, "plain_calls": 0},
         "pack_residues": {"launches": 3, "plain_calls": 0},
         "unpack_residues": {"launches": 3, "plain_calls": 0}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_decode_matches_plain_version(cuda, dtype):
+    """K10 on ragged W, a wrapped ring with a window, rep 6 and 10 (two
+    row groups); f32 sums in another order: rtol = atol = 2e-5."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    kfd.reset_counts()
+    for B, H, KV, hd, W, window, pos in ((8, 12, 2, 128, 2080, 0, 2047),
+                                         (2, 10, 1, 256, 300, 0, 180),
+                                         (3, 8, 4, 64, 100, 64, 130)):
+        q = torch.randn(B, H, hd, generator=g, device=cuda) * hd ** -0.5
+        k = torch.randn(B, W, KV, hd, generator=g, device=cuda).to(dtype)
+        v = torch.randn(B, W, KV, hd, generator=g, device=cuda).to(dtype)
+        s = torch.arange(W, device=cuda)
+        last = pos - torch.remainder(pos - s, W)  # ring slots, -1 unwritten
+        slot = torch.where(last >= 0, last, -1).to(torch.int32)
+        got = kfd.flash_decode(q, k, v, slot, pos, window=window)
+        want = kfd.flash_decode_plain(q, k, v, slot, pos, window=window)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert kfd.counts() == {"flash_decode": {"launches": 3,
+                                             "plain_calls": 0}}
+
+
+@pytest.mark.cuda
+def test_cuda_generate_reduced_matches_teacher_forcing(cuda):
+    """qwen2-reduced through the serve loop on the card: K10 once per layer
+    per step, each step's logits within 2e-4 of teacher forcing (the
+    reference's own decode tolerance)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = registry.get_config("qwen2-1.5b", reduced=True)
+    model = build_model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), device=cuda,
+                           generator=g)
+    kfd.reset_counts()
+    gen = serve.generate(model, params, tokens, 4, keep_logits=True)
+    assert kfd.counts()["flash_decode"] == {
+        "launches": cfg.num_layers * 4, "plain_calls": 0}
+    full = torch.cat([tokens, gen.tokens[:, :4]], dim=1)
+    logits, _ = model.apply(params, {"tokens": full})
+    for i, step in enumerate(gen.logits):
+        torch.testing.assert_close(step, logits[:, 15 + i], rtol=0,
+                                   atol=2e-4)
