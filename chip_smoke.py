@@ -36,8 +36,22 @@ Phases (each prints its seconds):
      against a teacher-forced ``apply`` over prompt + generated tokens;
      prefill and decode ms and tok/s; a ``torch.profiler`` breakdown of 4
      decode steps of the plain run (device-busy ms, idle share, kernels);
+  2d. training: ``python -m repro_torch.launch.train``'s ``main`` at
+     qwen2-1.5b's published width AND depth (28 layers, cohort 4, sequence
+     64, 2 rounds, secure-agg bits 32, TEE noise 0.3; every printed loss,
+     clip fraction and update norm finite), with the round's time split
+     into local SGD / privatize / encode (torch uniforms apart) / sum /
+     decode + server optimizer and the peak device memory; two rounds
+     through ``build_round_step`` at full width with noise 0 on the same
+     params, batch and key, one at bits 32 (K3, K6, K7) and one at bits 0
+     (K3, K8), whose new params agree within the fixed-point resolution;
+     a ``secure_agg_masked`` round and an unmasked one at 2 layers (depth
+     cut for time), bit-equal; ``--classifier`` for 20 rounds, whose loss
+     falls;
   3. the exact kernel launch counts of each path (and zero plain-version
-     calls): K10 once per layer per decode step of each serve run;
+     calls): K10 once per layer per decode step of each serve run; per
+     training round at cohort 4 (one chunk of 4 clients, 14 leaves) K3 14,
+     K6 56 and K7 14 at bits 32, K3 14 and K8 14 at bits 0;
   4. the card's name and power limit, each kernel's time at the main path's
      largest shape beside its bound and its plain version's time; K10's
      device time (calls queued behind a sleep kernel) at the serve shape
@@ -47,7 +61,13 @@ Phases (each prints its seconds):
 Phase 1 also holds K10 (``flash_decode``, float attention) to its plain
 version within rtol = atol = 2e-5 (f32 sums in another order): f32 and bf16
 K/V, window 0 and > 0, wrapped ring buffers, partly filled caches, ragged
-W, the serve path's shapes.
+W, the serve path's shapes; K6 (``quantize_mask``, with and without a mask,
+ragged D, +-inf, NaN and saturating inputs) and K7 (``dequantize``, both
+multipliers) bit-equal; K3 (``sq_norms``) within rtol 1e-5 and K8
+(``scale_accum``) within 1e-6 of the largest |s_c x_c| sum (f32 sums).
+Phase 4 times K3, K6, K7 and K8 at the training round's largest leaf
+(4 x 385,351,680) beside one library call each (``vector_norm``,
+``scales @ x``, ``torch.mul``; none computes K6).
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it.  Deltas and weights are random, made from ``--seed``.
@@ -97,6 +117,21 @@ SERVE_PARAMS = 1_543_714_304
 TF_ATOL = 1e-3
 # K10 against its plain version (f32 sums in another order)
 FD_TOL = dict(rtol=2e-5, atol=2e-5)
+# phase 2d: the train CLI at qwen2-1.5b's full width and depth
+TRAIN_ARGS = ["--full", "--rounds", "2", "--cohort", "4", "--seq-len", "64"]
+TRAIN_ARCH, TRAIN_REDUCED = "qwen2-1.5b", False
+TRAIN_COHORT, TRAIN_SEQ, TRAIN_ROUNDS = 4, 64, 2
+TRAIN_LEAVES = 14
+MASKED_LAYERS = 2  # the masked/unmasked pair's depth, cut for time
+CLASSIFIER_ARGS = ["--classifier", "--rounds", "20", "--log-every", "5"]
+CLASSIFIER_ROUNDS = 20
+# the classifier round: cohort 16 in 2 chunks of 8 clients, 6 leaves
+CLASSIFIER_CHUNKS, CLASSIFIER_LEAVES, CLASSIFIER_COHORT = 2, 6, 16
+# K3 and K8 against their plain versions (f32 sums)
+SQ_RTOL = 1e-5
+ACC_RTOL = 1e-6
+# the round's largest leaf: qwen2-1.5b's stacked MLP weight, 28 x 1536 x 8960
+ROUND_LEAF = 28 * 1536 * 8960
 # K10's timed shapes: (B, W) of the serve path and of decode_32k
 # (configs/shapes.py: batch 128, one qwen2 layer's 32768-deep cache)
 FD_SHAPES = (("serve", 8, 2080), ("decode_32k", 128, 32768))
@@ -234,6 +269,63 @@ def kernel_parity(torch) -> None:
     log(f"  pack_residues/unpack_residues: {n} cases bit-equal to the plain "
         "versions and round-tripped")
     flash_decode_parity(torch, g)
+    round_kernel_parity(torch, g)
+
+
+def round_kernel_parity(torch, g) -> None:
+    """K6 and K7 bit-equal to their plain versions; K3 and K8 within their
+    stated tolerances (f32 sums in another order)."""
+    import math
+    from repro_torch.kernels import dp_clip as kdp
+    from repro_torch.kernels import secure_agg as ksa
+    edges = torch.tensor([math.inf, -math.inf, math.nan, 3e9, -3e9, 1e30,
+                          -0.0, 0.0, 2.5, -2.5], device="cuda")
+    n = 0
+    for D in (1, 10, 1000, 4097, (1 << 20) + 3, (1 << 20) + 4):
+        x = torch.randn(D, generator=g, device="cuda") * 3.0
+        x[:min(D, 10)] = edges[:min(D, 10)]
+        u = torch.rand(D, generator=g, device="cuda")
+        m = torch.randint(-2 ** 31, 2 ** 31, (D,), generator=g,
+                          device="cuda", dtype=torch.int64).to(torch.int32)
+        for scale, vr in ((131067.5, 4.0), (134217726.75, math.inf),
+                          (1e9, math.inf)):
+            for mask in (m, None):
+                got = ksa.quantize_mask(x, mask, u, scale, vr)
+                want = ksa.quantize_mask_plain(x, mask, u, scale, vr)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"quantize_mask != plain (D={D}, scale={scale}, "
+                      f"vr={vr}, mask={mask is not None})")
+                n += 1
+        for scale in (131067.5, 33554430.75, 3.0):
+            for inv in (ksa.pallas_inverse(scale), ksa.jit_inverse(scale)):
+                got = ksa.dequantize(m, inv)
+                torch.cuda.synchronize()
+                check(torch.equal(got, ksa.dequantize_plain(m, inv)),
+                      f"dequantize != plain (D={D}, inv={inv})")
+                n += 1
+    log(f"  quantize_mask/dequantize: {n} cases bit-equal to the plain "
+        "versions")
+    n, worst_sq, worst_acc = 0, 0.0, 0.0
+    for C, D in ((1, 1), (4, 7), (3, 1000), (4, 4096), (8, (1 << 20) + 3),
+                 (4, (1 << 22) + 8)):
+        x = torch.randn(C, D, generator=g, device="cuda")
+        s = torch.rand(C, generator=g, device="cuda")
+        sq, sq_want = kdp.sq_norms(x), kdp.sq_norms_plain(x)
+        acc, acc_want = kdp.scale_accum(x, s), kdp.scale_accum_plain(x, s)
+        torch.cuda.synchronize()
+        e_sq = float(((sq - sq_want).abs() / sq_want.abs()).max())
+        top = float((s[:, None] * x).abs().sum(0).max())
+        e_acc = float((acc - acc_want).abs().max()) / top
+        worst_sq, worst_acc = max(worst_sq, e_sq), max(worst_acc, e_acc)
+        check(e_sq <= SQ_RTOL, f"sq_norms != plain (C={C}, D={D}): "
+              f"relative {e_sq:.3g}")
+        check(e_acc <= ACC_RTOL, f"scale_accum != plain (C={C}, D={D}): "
+              f"{e_acc:.3g} of the largest |s x| sum")
+        n += 1
+    log(f"  sq_norms: {n} cases within rtol {SQ_RTOL} (worst "
+        f"{worst_sq:.3g}); scale_accum: within {ACC_RTOL} of the largest "
+        f"|s x| sum (worst {worst_acc:.3g})")
 
 
 def ring_slots(torch, W: int, pos: int, filled: int):
@@ -623,6 +715,188 @@ def decode_profile(torch, session: dict, smi: str, steps: int = 4) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 2d: the training round at full width and depth
+# ---------------------------------------------------------------------------
+ROUND_PARTS = ("round.local_sgd", "round.privatize", "round.encode",
+               "round.uniforms", "round.sum", "round.decode")
+
+
+def round_breakdown(tel) -> list:
+    """Per ``round.execute`` span: {total, part: ms} from its fenced inner
+    spans (``round.sum`` and ``round.uniforms`` nest in ``round.encode``
+    when the round encodes; encode is reported without them)."""
+    by_sid = {sp.sid: sp for sp in tel.spans}
+
+    def root(sp):
+        while sp.parent is not None and sp.name != "round.execute":
+            sp = by_sid[sp.parent]
+        return sp.sid if sp.name == "round.execute" else None
+
+    rounds = {sp.sid: {"total": sp.dur_ns / 1e6, **dict.fromkeys(
+        ROUND_PARTS, 0.0)} for sp in tel.spans if sp.name == "round.execute"}
+    for sp in tel.spans:
+        r = root(sp) if sp.name in ROUND_PARTS else None
+        if r is not None:
+            rounds[r][sp.name] += sp.dur_ns / 1e6
+    out = []
+    for sid in sorted(rounds):
+        b = rounds[sid]
+        if b["round.encode"]:
+            b["round.encode"] -= b["round.uniforms"] + b["round.sum"]
+        out.append(b)
+    return out
+
+
+def _finite_metrics(history) -> bool:
+    import math
+    return all(math.isfinite(m[k]) for m in history
+               for k in ("loss", "clip_fraction", "update_norm"))
+
+
+def train_path(torch, seed: int, counts: dict, smi: str) -> None:
+    """Phase 2d; ``counts[run]`` gets the kernel counts of each run."""
+    import math
+    from repro_torch import tree as T
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import telemetry as tele
+    from repro_torch.core.fl import aggregation as agg
+    from repro_torch.core.fl import round as fl_round
+    from repro_torch.data.synthetic import fl_token_batch
+    from repro_torch.kernels import prf
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+
+    # 1. the train CLI at full width: its lines, its time split, its memory
+    tel = tele.Telemetry(record_spans=True, fence=True)
+    prev = tele.set_default(tel)
+    session = {}
+    try:
+        reset_counts()
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        rc = train.main(TRAIN_ARGS + ["--seed", str(seed), "--log-every",
+                                      "1", "--device", DEVICE],
+                        session=session)
+        counts["train-full"] = kernel_counts()
+    finally:
+        tele.set_default(prev)
+    check(rc == 0, f"train: exit {rc}")
+    hist = session["metrics"]
+    check(len(hist) == TRAIN_ROUNDS and _finite_metrics(hist),
+          f"train: non-finite round metrics {hist}")
+    n = sum(int(x.numel()) for x in T.leaves(session["state"].params))
+    leaves = len(T.leaves(session["state"].params))
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if DEVICE == "cuda" else float("nan"))
+    log(f"  train {TRAIN_ARCH}: {n:,} parameters in {leaves} leaves, cohort "
+        f"{TRAIN_COHORT}, sequence {TRAIN_SEQ}, {TRAIN_ROUNDS} rounds; peak "
+        f"device memory {peak:.2f} GiB; {smi}")
+    check(leaves == TRAIN_LEAVES, f"train: {leaves} leaves")
+    for r, b in enumerate(round_breakdown(tel)):
+        parts = "; ".join(f"{k.split('.')[1]} {b[k]:.1f}"
+                          for k in ROUND_PARTS)
+        log(f"  train round {r}: {b['total']:.1f} ms = {parts} (ms; encode "
+            f"without its uniforms and sums); loss {hist[r]['loss']:.4f} "
+            f"clip% {hist[r]['clip_fraction']:.2f} |u| "
+            f"{hist[r]['update_norm']:.3f}")
+    del session
+    empty_cache(torch)
+
+    # 2. bits 32 and bits 0 from the same params, batch and key, noise 0
+    cfg = registry.get_config(TRAIN_ARCH, reduced=TRAIN_REDUCED)
+    cfg = cfg.with_overrides(max_seq_len=max(TRAIN_SEQ, 64))
+    model = build_model(cfg, device=DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(seed))
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in fl_token_batch(
+        TRAIN_COHORT, TRAIN_SEQ, cfg.vocab_size, seed=seed + 1).items()}
+    rng = prf.fold_in(prf.PRNGKey(seed), 10_000)
+    news, times = {}, {}
+    for bits in (32, 0):
+        fl = FLConfig(cohort_size=TRAIN_COHORT, local_lr=0.5, clip_norm=1.0,
+                      noise_multiplier=0.0, secure_agg_bits=bits)
+        step = fl_round.build_round_step(model.loss_fn, fl,
+                                         cohort_size=TRAIN_COHORT,
+                                         device=DEVICE)
+        reset_counts()
+        t0 = time.perf_counter()
+        new, met = step(fl_round.init_fl_state(params, fl), batch, rng)
+        sync(torch)
+        times[bits] = (time.perf_counter() - t0) * 1e3
+        counts[f"round-bits{bits}"] = kernel_counts()
+        check(math.isfinite(float(met["loss"])), f"bits {bits}: loss")
+        news[bits] = new.params
+        del new, step
+        empty_cache(torch)
+    scale = agg.fixed_point_scale(FLConfig(secure_agg_bits=32), TRAIN_COHORT)
+    # the two sums differ by < 1 fixed-point level per client: the mean by
+    # <= 1/scale, plus an ulp of |p| where p + delta rounds the other way
+    atol = TRAIN_COHORT / scale
+    worst = 0.0
+    for a, b in zip(T.leaves(news[32]), T.leaves(news[0])):
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()))
+        check(bool((d <= atol + 2.4e-7 * b.abs()).all()),
+              f"bits 32 vs bits 0: max |dp| {float(d.max()):.3g} > "
+              f"{atol:.3g} + 2 ulp")
+    log(f"  round at bits 32 ({times[32]:.0f} ms) vs bits 0 "
+        f"({times[0]:.0f} ms), noise 0, the same params/batch/key: max "
+        f"|dparam| {worst:.3g} (bound {atol:.3g} + 2 ulp of |p|)")
+    del news, params, model
+    empty_cache(torch)
+
+    # 3. masked vs unmasked, bit-equal (depth cut to MASKED_LAYERS); the
+    # two local-SGD passes must agree bit for bit, so torch runs its
+    # deterministic algorithms here (the embedding's index backward)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg2 = cfg.with_overrides(num_layers=MASKED_LAYERS)
+    model = build_model(cfg2, device=DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(seed))
+    outs = {}
+    for masked in (True, False):
+        fl = FLConfig(cohort_size=TRAIN_COHORT, local_lr=0.5, clip_norm=1.0,
+                      noise_multiplier=0.0, secure_agg_bits=32,
+                      secure_agg_masked=masked)
+        step = fl_round.build_round_step(model.loss_fn, fl,
+                                         cohort_size=TRAIN_COHORT,
+                                         device=DEVICE)
+        reset_counts()
+        t0 = time.perf_counter()
+        new, _ = step(fl_round.init_fl_state(params, fl), batch, rng)
+        sync(torch)
+        counts[f"round-{'masked' if masked else 'unmasked'}"] = \
+            kernel_counts()
+        outs[masked] = (new.params, (time.perf_counter() - t0) * 1e3)
+    same = all(torch.equal(a, b) for a, b in zip(
+        T.leaves(outs[True][0]), T.leaves(outs[False][0])))
+    torch.use_deterministic_algorithms(False)
+    check(same, "the masked round's params differ from the unmasked round's")
+    log(f"  {MASKED_LAYERS}-layer round, masked ({outs[True][1]:.0f} ms) "
+        f"and unmasked ({outs[False][1]:.0f} ms): params bit-equal")
+    del outs, params, model, batch
+    empty_cache(torch)
+
+    # 4. the paper's classifier: the loss falls
+    session = {}
+    reset_counts()
+    rc = train.main(CLASSIFIER_ARGS + ["--seed", str(seed), "--device",
+                                       DEVICE], session=session)
+    counts["train-classifier"] = kernel_counts()
+    losses = [m["loss"] for m in session["metrics"]]
+    check(rc == 0 and _finite_metrics(session["metrics"]),
+          "classifier: failed or non-finite")
+    late = statistics.mean(losses[-5:])
+    check(late < losses[0], f"classifier: loss {losses[0]:.4f} -> {late:.4f}")
+    log(f"  classifier, {CLASSIFIER_ROUNDS} rounds: loss {losses[0]:.4f} -> "
+        f"{late:.4f} (mean of the last 5)")
+
+
+def empty_cache(torch) -> None:
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel times at the main path's largest shape
 # ---------------------------------------------------------------------------
 def _cycled(fn, n: int):
@@ -849,6 +1123,105 @@ def kernel_times(torch, counts) -> list:
     return out
 
 
+def _plain_ms(torch, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def round_kernel_times(torch, launches, smi: str) -> list:
+    """K3, K8 at (4, ROUND_LEAF) and K6, K7 at (ROUND_LEAF,): kernel (CUDA
+    events), plain version (host clock, once), one library call."""
+    import math
+    from repro_torch.kernels import dp_clip as kdp
+    from repro_torch.kernels import secure_agg as ksa
+    g = torch.Generator(device="cuda").manual_seed(4)
+    C, D = TRAIN_COHORT, ROUND_LEAF
+    out = []
+    x = torch.randn(C, D, generator=g, device="cuda") * DELTA_SCALE
+    s = torch.rand(C, generator=g, device="cuda")
+    got = kdp.sq_norms(x)
+    plain_ms, want = _plain_ms(torch, lambda: kdp.sq_norms_plain(x))
+    err = float((got - want).abs().max())
+    check(err <= SQ_RTOL * float(want.abs().max()),
+          f"sq_norms != plain at the round's leaf: {err:.3g}")
+    ms = _cuda_ms(torch, lambda: kdp.sq_norms(x), 10)
+    lib_ms = _cuda_ms(torch, lambda: torch.linalg.vector_norm(x, dim=1), 10)
+    out.append(_entry("sq_norms", "src/repro_torch/kernels/csrc/dp_clip.cu",
+                      "src/repro/kernels/dp_clip.py:39",
+                      launches["sq_norms"], ms, plain_ms, 2 * C * D,
+                      C * D * 4 + C * 4, max_abs_err=err, library_ms=lib_ms))
+    got = kdp.scale_accum(x, s)
+    plain_ms, want = _plain_ms(torch, lambda: kdp.scale_accum_plain(x, s))
+    err = float((got - want).abs().max())
+    check(err <= ACC_RTOL * float((s[:, None] * x).abs().sum(0).max()),
+          f"scale_accum != plain at the round's leaf: {err:.3g}")
+    del got, want
+    ms = _cuda_ms(torch, lambda: kdp.scale_accum(x, s), 10)
+    lib_ms = _cuda_ms(torch, lambda: s @ x, 10)
+    out.append(_entry("scale_accum",
+                      "src/repro_torch/kernels/csrc/dp_clip.cu",
+                      "src/repro/kernels/dp_clip.py:69",
+                      launches["scale_accum"], ms, plain_ms, 2 * C * D,
+                      C * D * 4 + C * 4 + D * 4, max_abs_err=err,
+                      library_ms=lib_ms))
+    del x
+    empty_cache(torch)
+
+    from repro_torch.core.fl import aggregation as agg
+    from repro_torch.configs.base import FLConfig
+    scale = agg.fixed_point_scale(FLConfig(secure_agg_bits=32), C)
+    x = torch.randn(D, generator=g, device="cuda") * DELTA_SCALE
+    u = torch.rand(D, generator=g, device="cuda")
+    m = torch.randint(-2 ** 31, 2 ** 31, (D,), generator=g, device="cuda",
+                      dtype=torch.int64).to(torch.int32)
+    for mask in (m, None):
+        got = ksa.quantize_mask(x, mask, u, scale, math.inf)
+        plain_ms, want = _plain_ms(torch, lambda: ksa.quantize_mask_plain(
+            x, mask, u, scale, math.inf))
+        check(torch.equal(got, want), "quantize_mask != plain at the "
+              f"round's leaf (mask={mask is not None})")
+        del got, want
+        ms = _cuda_ms(torch, lambda: ksa.quantize_mask(x, mask, u, scale,
+                                                       math.inf), 10)
+        e = _entry("quantize_mask",
+                   "src/repro_torch/kernels/csrc/quantize_mask.cu",
+                   "src/repro/kernels/secure_agg.py:84",
+                   launches["quantize_mask"], ms, plain_ms, 8 * D,
+                   D * (16 if mask is not None else 12))
+        if mask is not None:
+            masked = e
+        else:
+            masked.update(no_mask_ms=e["ms"], no_mask_plain_ms=e["plain_ms"],
+                          no_mask_bound_ms=e["bound_ms"])
+            out.append(masked)
+        log(f"  quantize_mask ({D}, mask={mask is not None}): "
+            f"{e['ms']:.3f} ms (bound {e['bound_ms']:.3f} ms by "
+            f"{e['bound_by']}; plain {e['plain_ms']:.1f} ms)")
+    inv = ksa.jit_inverse(scale)
+    got = ksa.dequantize(m, inv)
+    plain_ms, want = _plain_ms(torch, lambda: ksa.dequantize_plain(m, inv))
+    check(torch.equal(got, want), "dequantize != plain at the round's leaf")
+    del got, want
+    ms = _cuda_ms(torch, lambda: ksa.dequantize(m, inv), 10)
+    lib_ms = _cuda_ms(torch, lambda: torch.mul(m, inv), 10)
+    out.append(_entry("dequantize",
+                      "src/repro_torch/kernels/csrc/quantize_mask.cu",
+                      "src/repro/kernels/secure_agg.py:600",
+                      launches["dequantize"], ms, plain_ms, D, 8 * D,
+                      library_ms=lib_ms))
+    del x, u, m
+    empty_cache(torch)
+    for e in out:
+        lib = "none" if e["library_ms"] is None else \
+            f"{e['library_ms']:.3f} ms"
+        log(f"  {e['name']}: {e['ms']:.3f} ms (bound {e['bound_ms']:.3f} ms "
+            f"by {e['bound_by']}; plain {e['plain_ms']:.1f} ms; library "
+            f"{lib}); {smi}")
+    return out
+
+
 def _entry(name, source, replaces, launches, ms, plain_ms, ops, nbytes, *,
            max_abs_err=0, library_ms=None):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -862,16 +1235,19 @@ def _entry(name, source, replaces, launches, ms, plain_ms, ops, nbytes, *,
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels import dp_clip as kdp
     from repro_torch.kernels import flash_decode as kfd
     from repro_torch.kernels import secure_agg as ksa
     ksa.reset_counts()
     kfd.reset_counts()
+    kdp.reset_counts()
 
 
 def kernel_counts() -> dict:
+    from repro_torch.kernels import dp_clip as kdp
     from repro_torch.kernels import flash_decode as kfd
     from repro_torch.kernels import secure_agg as ksa
-    return {**ksa.counts(), **kfd.counts()}
+    return {**ksa.counts(), **kfd.counts(), **kdp.counts()}
 
 
 def main() -> int:
@@ -920,6 +1296,9 @@ def main() -> int:
     with Phase("phase 2c: serving qwen2-1.5b at full width and depth"):
         serve_path(torch, args.seed, counts, smi)
 
+    with Phase("phase 2d: training qwen2-1.5b at full width and depth"):
+        train_path(torch, args.seed, counts, smi)
+
     with Phase("phase 3: kernels on the main path"):
         # launches per path: one per chunk of every push (or flush) that
         # runs the kernel; 14 pushes and 2 flushes per run
@@ -942,12 +1321,31 @@ def main() -> int:
                            "pack_residues": 3 * per_run,
                            "unpack_residues": 3 * per_run},
         }
+        round_kernels = ("sq_norms", "scale_accum", "quantize_mask",
+                         "dequantize")
         for path in ("uncompressed", "compressed"):
             want[path]["flash_decode"] = 0
+            want[path].update(dict.fromkeys(round_kernels, 0))
+        zero = dict.fromkeys(want["compressed"], 0)
         # serving: K10 once per layer per decode step, nothing else
         for name, _ in SERVE_RUNS:
-            want[f"serve-{name}"] = dict.fromkeys(want["compressed"], 0)
+            want[f"serve-{name}"] = dict(zero)
             want[f"serve-{name}"]["flash_decode"] = SERVE_LAYERS * SERVE_STEPS
+        # training, one chunk of 4 clients a round: K3 once per leaf, K6
+        # once per client leaf and K7 once per leaf at bits 32, K8 once per
+        # leaf at bits 0
+        L, C = TRAIN_LEAVES, TRAIN_COHORT
+        sa_round = dict(zero, sq_norms=L, quantize_mask=C * L, dequantize=L)
+        want["train-full"] = {k: TRAIN_ROUNDS * v
+                              for k, v in sa_round.items()}
+        want["round-bits32"] = sa_round
+        want["round-bits0"] = dict(zero, sq_norms=L, scale_accum=L)
+        want["round-masked"] = want["round-unmasked"] = sa_round
+        Lc = CLASSIFIER_LEAVES
+        want["train-classifier"] = dict(
+            zero, sq_norms=CLASSIFIER_ROUNDS * CLASSIFIER_CHUNKS * Lc,
+            quantize_mask=CLASSIFIER_ROUNDS * CLASSIFIER_COHORT * Lc,
+            dequantize=CLASSIFIER_ROUNDS * Lc)
         launches = {}
         for path, got in counts.items():
             runs = {k: v["launches"] for k, v in got.items()}
@@ -966,6 +1364,7 @@ def main() -> int:
     with Phase("phase 4: device and kernel times"):
         entries = kernel_times(torch, launches)
         entries.append(flash_decode_times(torch, launches["flash_decode"]))
+        entries += round_kernel_times(torch, launches, smi)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

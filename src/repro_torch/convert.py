@@ -10,6 +10,8 @@ module imports neither JAX nor the JAX package:
                              port's cache (``pos`` int32);
   ``server_state_from_numpy`` a server-optimizer state (``step``, and
                              FedAvgM/FedAdam/FedAdagrad moments) -> tensors;
+  ``fl_state_from_numpy``    a sync round's ``FLState`` (params, server
+                             state, round index) -> the port's ``FLState``;
   ``key_from_numpy``         a JAX PRNG key (its 2 uint32 words) ->
                              the port's ``(k0, k1)``;
   ``client_push_from_numpy`` a JAX-side ``ClientPush`` (uint32 word rows) ->
@@ -23,6 +25,7 @@ import torch
 from repro_torch import tree as T
 from repro_torch.core.fl import async_fl as afl
 from repro_torch.core.fl import compression as comp
+from repro_torch.core.fl import round as fl_round
 
 
 def _tensor(x, device, dtype=None) -> torch.Tensor:
@@ -55,6 +58,14 @@ def server_state_from_numpy(state, device="cpu"):
         else:
             out[k] = params_from_numpy(v, device)
     return out
+
+
+def fl_state_from_numpy(state, device="cpu"):
+    """A JAX-side ``FLState`` (any object with ``params``, ``opt_state`` and
+    ``round_idx``) -> the port's ``round.FLState`` on ``device``."""
+    return fl_round.FLState(params_from_numpy(state.params, device),
+                   server_state_from_numpy(state.opt_state, device),
+                   _tensor(state.round_idx, device, torch.int32))
 
 
 def key_from_numpy(key):

@@ -1,7 +1,13 @@
-"""The aggregation engine of the buffered-async server (port).
+"""The aggregation engine of the buffered-async server and the sync round
+(port).
 
 Port of the ``repro.core.fl.aggregation`` functions that ``AsyncServer``
-runs: the static :class:`AggregationSpec`, the pytree-native
+and the synchronous round (``core/fl/round.py``) run: the tree-shaped
+encode/mask/decode of the round (``encode_tree`` through
+``kernels.secure_agg.quantize_mask``, ``decode_tree`` through
+``dequantize``, ``privatize_contribution`` with its clip norm from
+``kernels.dp_clip.sq_norms``, ``finalize_aggregate``), the flat batched
+``aggregate_buffer``, the static :class:`AggregationSpec`, the pytree-native
 :class:`ParamPlan` (model leaves grouped into flat chunks, each chunk its own
 mask session and its own slice of the model-wide stochastic-rounding
 stream), the per-session compression operators (``plan_operators``), the
@@ -41,6 +47,7 @@ from repro_torch import tree as T
 from repro_torch.core.fl import compression as comp
 from repro_torch.core.fl import dp
 from repro_torch.core.fl import secure_agg as sa
+from repro_torch.kernels import dp_clip as kdp
 from repro_torch.kernels import prf
 from repro_torch.kernels import secure_agg as ksa
 
@@ -116,10 +123,111 @@ def _scalar(v, device) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=device)
 
 
-def clip_scales(nrm: torch.Tensor, clip_norm: float) -> torch.Tensor:
-    """``min(1, clip_norm / max(nrm, 1e-12))`` in f32, elementwise."""
-    return torch.clamp(_scalar(clip_norm, nrm.device)
-                       / torch.clamp(nrm, min=1e-12), max=1.0)
+clip_scales = kdp.clip_scales
+
+
+def add_mod32_(acc: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``acc += q`` mod 2^32 in place on int32 tensors of one shape, in
+    tiles (int64 words, so no tile needs more than a few of ``TILE``)."""
+    a, b = acc.view(-1), q.reshape(-1)
+    for s in range(0, a.numel(), prf.TILE):
+        t = slice(s, s + prf.TILE)
+        a[t] = prf.to_int32(prf.words_of(a[t]) + prf.words_of(b[t]))
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# Fixed-point secure-aggregation encode / decode (tree- and array-shaped)
+# ---------------------------------------------------------------------------
+def encode_array(x: torch.Tensor, scale: float, rng) -> torch.Tensor:
+    """Stochastic-rounding fixed-point encode of one tensor to int32, with
+    the reference's ``jax.random.uniform(rng, x.shape)`` draw, through
+    ``kernels.secure_agg.quantize_mask`` (no clip: ``value_range=inf``)."""
+    u = prf.uniform(rng, x.numel(), device=x.device)
+    q = ksa.quantize_mask(x.reshape(-1).to(torch.float32).contiguous(), None,
+                          u, scale, math.inf)
+    return q.reshape(x.shape)
+
+
+def encode_tree(tree, scale: float, rng):
+    """Per-leaf :func:`encode_array`, leaf ``i`` keyed ``split(rng)[i]``."""
+    paths, leaves = T.flatten(tree)
+    keys = prf.split(rng, len(leaves))
+    return T.unflatten(paths, [encode_array(x, scale, k)
+                               for x, k in zip(leaves, keys)])
+
+
+def decode_tree(tree, scale: float):
+    """``q / scale`` per leaf through ``kernels.secure_agg.dequantize``,
+    with the jitted reference's multiplier ``f32(1) / f32(scale)``."""
+    inv = ksa.jit_inverse(scale)
+    return T.tree_map(
+        lambda q: ksa.dequantize(q.reshape(-1).contiguous(), inv)
+        .reshape(q.shape), tree)
+
+
+def mask_tree(tree, slot: int, session: sa.MaskSession):
+    """Session masks shaped like ``tree`` for one slot: leaf ``i`` draws its
+    pairwise streams under ``fold_in(session.key, i)``."""
+    paths, leaves = T.flatten(tree)
+    return T.unflatten(paths, [
+        sa.session_mask(x.shape, slot, session.num_slots,
+                        prf.fold_in(session.key, i), session.degree,
+                        session.perm, device=x.device)
+        for i, x in enumerate(leaves)])
+
+
+def client_sq_norms(stacked: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Whole-model squared norms of ``C`` stacked contributions (leaves in
+    flatten order, each ``(C, ...)``): one ``kernels.dp_clip.sq_norms``
+    launch per leaf over its ``(C, leaf)`` rows, the leaf partials added in
+    flatten order (``dp.global_norm``'s left fold)."""
+    sq = None
+    for x in stacked:
+        part = kdp.sq_norms(x.reshape(x.shape[0], -1).to(torch.float32)
+                            .contiguous())
+        sq = part if sq is None else sq + part
+    return sq
+
+
+def privatize_contribution(delta, spec: "AggregationSpec", rng) -> Tuple:
+    """Clip one contribution by its whole-model norm (+ local noise under
+    ``device`` placement).  Returns (delta, pre_clip_norm, was_clipped)."""
+    nrm = torch.sqrt(client_sq_norms(
+        [x.reshape(1, -1) for x in T.leaves(delta)])[0])
+    scale = clip_scales(nrm, spec.clip_norm)
+    delta = T.tree_map(lambda x: (x.to(torch.float32) * scale).to(x.dtype),
+                       delta)
+    if spec.dev_noise > 0.0:
+        delta = dp.add_noise(delta, prf.fold_in(rng, 1), spec.dev_noise)
+    return delta, nrm, scale < 1.0
+
+
+def accumulator_dtype(spec: "AggregationSpec"):
+    return torch.int32 if spec.use_secure_agg else torch.float32
+
+
+def zero_accumulator(params, spec: "AggregationSpec",
+                     leading: Tuple[int, ...] = ()):
+    """A zeroed aggregation accumulator shaped like ``params`` (+ leading)."""
+    dt = accumulator_dtype(spec)
+    return T.tree_map(lambda x: torch.zeros(tuple(leading) + tuple(x.shape),
+                                            dtype=dt, device=x.device),
+                      params)
+
+
+def finalize_aggregate(acc, total_weight, spec: "AggregationSpec", rng):
+    """Decode the summed accumulator tree into the noised mean delta; the
+    TEE draw (``tee`` placement) is rescaled to the effective weight."""
+    leaf = T.leaves(acc)[0]
+    w = torch.clamp(torch.as_tensor(total_weight, dtype=torch.float32,
+                                    device=leaf.device), min=1e-9)
+    agg = decode_tree(acc, spec.sa_scale) if spec.use_secure_agg else acc
+    mean = T.tree_map(lambda a: a / w, agg)
+    if spec.tee_noise > 0.0:
+        mean = dp.add_noise(mean, rng, spec.tee_noise * spec.num_contributors
+                            / float(w))
+    return mean
 
 
 def sum_rows(rows: torch.Tensor, gate: Optional[Sequence[bool]] = None
@@ -282,6 +390,26 @@ def plan_sq_norms(plan: ParamPlan,
             sq = sq + part
             off += sizes[i]
     return sq
+
+
+def plan_mask_tree(tree, slot: int, plan: ParamPlan, sessions):
+    """Plan form of :func:`mask_tree`: leaf ``i`` of chunk ``c`` draws under
+    chunk ``c``'s session key folded by its chunk-LOCAL leaf index."""
+    return T.unflatten(plan.paths, [
+        plan_leaf_mask(plan, sessions, i, slot, x.shape, x.device)
+        for i, x in enumerate(plan.leaves_of(tree))])
+
+
+def plan_leaf_mask(plan: ParamPlan, sessions, i: int, slot: int, shape,
+                   device=None) -> torch.Tensor:
+    """Leaf ``i``'s mask of :func:`plan_mask_tree` alone."""
+    for c, ck in enumerate(plan.chunks):
+        if ck.leaf_lo <= i < ck.leaf_hi:
+            s = sessions[c]
+            return sa.session_mask(shape, slot, s.num_slots,
+                                   prf.fold_in(s.key, i - ck.leaf_lo),
+                                   s.degree, s.perm, device=device)
+    raise IndexError(f"leaf {i} outside the plan")
 
 
 def plan_sessions(spec: AggregationSpec, plan: ParamPlan, key, *,
@@ -483,7 +611,7 @@ def encode_and_sum_rows(buf: torch.Tensor, weights: torch.Tensor, uniforms,
                          "(spec.use_secure_agg)")
     B, D = buf.shape
     if row_sq is None:
-        row_sq = torch.stack([torch.sum(r.float() * r.float()) for r in buf])
+        row_sq = kdp.sq_norms(buf.to(torch.float32).contiguous())
     nrm = torch.sqrt(row_sq)
     clip_scale = clip_scales(nrm, spec.clip_norm)
     was_clipped = (clip_scale < 1.0).to(torch.float32)
@@ -504,6 +632,44 @@ def encode_and_sum_rows(buf: torch.Tensor, weights: torch.Tensor, uniforms,
             x = x + noise
         acc = x.sum(0)
     return acc, nrm, was_clipped
+
+
+def buffer_noise_and_uniforms(rng, B: int, D: int, spec: AggregationSpec,
+                              device=None):
+    """The flat batched aggregation's draws: ``jax.random.normal(
+    fold_in(rng, 1), (B, D))`` device noise (to ~2e-5) and the per-row
+    TAG_UNIFORM streams (bit-equal)."""
+    noise = (prf.normal(prf.fold_in(rng, 1), (B, D), device=device)
+             if spec.dev_noise > 0.0 else None)
+    uniforms = None
+    if spec.use_secure_agg:
+        r0, r1 = row_uniform_keys(rng, B)
+        uniforms = prf.uniform_block(r0, r1, D, device=device)
+    return noise, uniforms
+
+
+def aggregate_buffer(buf: torch.Tensor, weights: torch.Tensor,
+                     spec: AggregationSpec, rng, *,
+                     session: Optional[sa.MaskSession] = None):
+    """One batched aggregation of a flat (B, D) contribution buffer: the
+    row norms through ``kernels.dp_clip.sq_norms``, the clip, weight and
+    encode (+ the session's masks) through ``weighted_quantize_accum``,
+    then decode and the TEE draw.  Returns (mean (D,), stats)."""
+    B, D = buf.shape
+    noise, uniforms = buffer_noise_and_uniforms(rng, B, D, spec, buf.device)
+    if noise is not None:
+        noise = noise * (spec.dev_noise * weights)[:, None]
+    acc, nrm, was_clipped = encode_and_sum_rows(
+        buf, weights, uniforms, noise, spec, session=session)
+    w_total = weights.sum()
+    mean = finalize_aggregate(acc, w_total, spec, prf.fold_in(rng, 0xDEE))
+    denom = torch.clamp(w_total, min=1e-9)
+    stats = {
+        "update_norm": (nrm * weights).sum() / denom,
+        "clip_fraction": (was_clipped * weights).sum() / denom,
+        "weight_total": w_total,
+    }
+    return mean, stats
 
 
 def encode_plan_rows(bufs: Sequence[torch.Tensor], weights: torch.Tensor,

@@ -18,8 +18,7 @@ on the device and shared by push and flush, and the buffers hold the
 operator-domain rows at the wire widths.  ``enclave_wire_bits`` quantizes
 the tee/tee_stream uplink onto a packed field wire.
 
-Not ported yet (raise ``NotImplementedError``): random k-regular mask
-graphs, and the ``simulate``/``simulate_training`` simulators.
+Not ported yet: the ``simulate``/``simulate_training`` simulators.
 """
 from __future__ import annotations
 
@@ -270,10 +269,6 @@ class AsyncServer:
             else 0
         self._enclave_seq = 0
         self._enclave_base = prf.PRNGKey(0xE7C)
-        if spec.random_graph:
-            raise NotImplementedError(
-                "random k-regular mask graphs (session_perm) are not ported "
-                "yet; set secure_agg_circulant=True or secure_agg_degree=0")
         if mask_mode == "off":
             if stream_encode and not spec.use_secure_agg:
                 raise ValueError(
@@ -373,8 +368,8 @@ class AsyncServer:
         evr = float(self.fl_cfg.secure_agg_range)
         xs = self._plan.chunk_arrays(_as_device_tree(delta, self.device))
         outs, words = [], []
-        for c, x in enumerate(xs):
-            q = sa.quantize(x, ebits, evr, prf.fold_in(key, c))
+        for x, k in zip(xs, prf.split(key, len(xs))):
+            q = sa.quantize(x, ebits, evr, k)
             w = sa.pack_residues(sa.to_field(q, emod), emod)
             q2 = sa.recenter(sa.unpack_residues(w, x.shape[-1], emod), emod)
             outs.append(sa.dequantize(q2, ebits, evr))

@@ -1,9 +1,11 @@
 """Differential privacy primitives: per-client clipping and Gaussian noise.
 
 Port of ``repro.core.fl.dp``.  Clipping is arithmetic and matches the JAX
-function up to the order of the float sum in the norm.  Gaussian noise is
-drawn from a ``torch.Generator`` seeded from the ``(k0, k1)`` key words: the
-same law as ``jax.random.normal``, but not the same numbers.
+function up to the order of the float sum in the norm.  ``add_noise`` draws
+the reference's own noise: ``jax.random.split`` + ``jax.random.normal``
+rebuilt by ``kernels.prf`` (equal to ~2e-5 per unit of std).
+:func:`generator` seeds a ``torch.Generator`` from key words for the draws
+held only to the reference's law (the engines' chunk-keyed device noise).
 """
 from __future__ import annotations
 
@@ -51,17 +53,12 @@ def generator(key, device) -> torch.Generator:
 
 
 def add_noise(update, key, stddev: float):
-    """Add isotropic Gaussian noise with the given std to every leaf.
-
-    Leaf ``i`` draws from ``fold_in(key, i)`` (the per-leaf split of the
-    JAX function, with a torch generator)."""
+    """Add isotropic Gaussian noise with the given std to every leaf: leaf
+    ``i`` draws ``normal(split(key, n_leaves)[i], shape)``, as the JAX
+    function does."""
     paths, leaves = T.flatten(update)
-    out = []
-    for i, x in enumerate(leaves):
-        g = generator(prf.fold_in(key, i), x.device)
-        z = torch.randn(x.shape, generator=g, dtype=torch.float32,
-                        device=x.device)
-        out.append(x + (stddev * z).to(x.dtype))
+    out = [x + (stddev * prf.normal(k, x.shape, device=x.device)).to(x.dtype)
+           for x, k in zip(leaves, prf.split(key, len(leaves)))]
     return T.unflatten(paths, out)
 
 

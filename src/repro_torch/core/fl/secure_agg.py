@@ -15,10 +15,9 @@ to 32 bits explicitly; int32 tensors hold the two's-complement bits.
 Slots, keys and edge lists are host metadata (Python ints), so no mask
 computation synchronises with the device.
 
-Not ported yet: ``session_perm`` (``jax.random.permutation``) — a random
-k-regular session graph cannot be drawn here, so ``make_session`` raises
-``NotImplementedError`` for it.  A :class:`MaskSession` built directly with
-a ``perm`` (e.g. the JAX package's permutation) is fully supported.
+Random k-regular session graphs relabel the ring by ``session_perm``, the
+reference's ``jax.random.permutation`` rebuilt bit for bit by
+``kernels.prf.permutation``.
 """
 from __future__ import annotations
 
@@ -27,7 +26,6 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.fl import dp
 from repro_torch.kernels import prf
 from repro_torch.kernels import secure_agg as ksa
 
@@ -36,9 +34,9 @@ def quantize(x: torch.Tensor, bits: int, value_range: float,
              rng=None) -> torch.Tensor:
     """Fixed-point encode to int32: x in [-range, range] -> int levels.
 
-    With ``rng`` (PRF key words), stochastic rounding against uniforms from
-    a ``torch.Generator`` seeded from the key — the law of the reference's
-    ``jax.random.uniform`` draw, not its numbers; else round half to even.
+    With ``rng`` (PRF key words), stochastic rounding against the
+    reference's ``jax.random.uniform(rng, x.shape)`` draw (bit-equal);
+    else round half to even.
     """
     dev = x.device
     levels = torch.tensor(2 ** (bits - 1) - 1, dtype=torch.float32,
@@ -48,8 +46,7 @@ def quantize(x: torch.Tensor, bits: int, value_range: float,
     xf = torch.clamp(x.to(torch.float32), -value_range, value_range) * scale
     if rng is not None:
         floor = torch.floor(xf)
-        u = torch.rand(xf.shape, generator=dp.generator(rng, dev),
-                       dtype=torch.float32, device=dev)
+        u = prf.uniform(rng, xf.shape, device=dev)
         xf = floor + (u < (xf - floor)).to(torch.float32)
     else:
         xf = torch.round(xf)
@@ -170,6 +167,18 @@ def _perm_list(perm) -> Optional[List[int]]:
     if isinstance(perm, torch.Tensor):
         return [int(v) for v in perm.reshape(-1).tolist()]
     return [int(v) for v in perm]
+
+
+GRAPH_PERM_TAG = 0x6B52
+
+
+def session_perm(num_slots: int, key, *, device=None) -> torch.Tensor:
+    """The session's random neighbourhood permutation (int32): the
+    reference's ``jax.random.permutation(fold_in(key, GRAPH_PERM_TAG),
+    num_slots)``, bit for bit.  Relabelling the k-ring by it gives the
+    random k-regular graph of a session."""
+    return prf.permutation(prf.fold_in(key, GRAPH_PERM_TAG), num_slots,
+                           device=device).to(torch.int32)
 
 
 def _neighbor_slots(slot: int, num_slots: int, degree: int,
@@ -331,12 +340,10 @@ class MaskSession:
 def make_session(key, num_slots: int, *, degree: int = 0,
                  random_graph: bool = False, slot_offset: int = 0,
                  modulus: int = 1 << 32) -> MaskSession:
-    """A :class:`MaskSession` with canonical graph parameters."""
+    """A :class:`MaskSession` with canonical graph parameters; a random
+    k-regular graph draws its ``session_perm`` from the key (host ints)."""
     k = effective_degree(num_slots, degree)
-    if k > 0 and random_graph:
-        raise NotImplementedError(
-            "random k-regular session graphs need session_perm "
-            "(jax.random.permutation), which the port does not reproduce "
-            "yet; set FLConfig.secure_agg_circulant=True or degree 0")
+    perm = (tuple(session_perm(num_slots, key).tolist())
+            if (k > 0 and random_graph) else None)
     return MaskSession(key=prf.key_words(key), num_slots=num_slots, degree=k,
-                       slot_offset=slot_offset, modulus=modulus)
+                       perm=perm, slot_offset=slot_offset, modulus=modulus)

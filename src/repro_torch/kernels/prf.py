@@ -22,9 +22,19 @@ Host-side generation is TILED over the stream axis (``TILE`` words at a
 time): a full-width model chunk has hundreds of millions of positions and an
 untiled ``int64`` stream of that size would need tens of GB.  The streams are
 counter-based and the sums are mod 2^32, so tiling is bit-identical.
+
+``split``, ``random_bits``, ``uniform``, ``normal`` and ``permutation``
+rebuild JAX's own draws (the threefry implementation with
+``jax_threefry_partitionable``, JAX's default): element ``i`` of a draw of
+shape ``s`` is the 20-round Threefry of the counter ``(i >> 32, i & M32)``
+under the key.  ``split``, ``random_bits``, ``uniform`` and
+``permutation`` are bit-equal to ``jax.random``; ``normal`` is
+``sqrt(2) * erfinv`` of the same uniforms, equal to JAX's to ~2e-5 (the two
+libraries' ``erfinv`` differ in the last bits).
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import torch
@@ -215,3 +225,88 @@ def signed_pair_sum(k0: int, k1: int, lo: Sequence[int], hi: Sequence[int],
             w = words(pk0[p:q], pk1[p:q], s, t)
             acc[s:t] += (g[p:q, None] * w).sum(0)
     return to_int32(acc)
+
+
+# --- jax.random draws -----------------------------------------------------
+def _jax_tile(device) -> int:
+    """Counters per tile of a ``jax.random`` draw (larger on the card, where
+    each torch op of the tile is one kernel launch)."""
+    return TILE * 8 if torch.device(device).type == "cuda" else TILE
+
+
+def _jax_lanes(key, start: int, stop: int, device):
+    """Both Threefry-20 lanes at flat counters ``[start, stop)``."""
+    k0, k1 = key_words(key)
+    i = torch.arange(start, stop, dtype=torch.int64, device=device)
+    return threefry2x32(k0, k1, i >> 32, i & M32, rounds=JAX_ROUNDS)
+
+
+def split(key, num: int = 2) -> list:
+    """Key words of ``jax.random.split(key, num)``: key ``i`` is both
+    lanes of the Threefry of the counter ``(0, i)``."""
+    k0, k1 = key_words(key)
+    return [threefry2x32(k0, k1, 0, i, rounds=JAX_ROUNDS)
+            for i in range(int(num))]
+
+
+def _draw(key, shape, device, dtype, finish) -> torch.Tensor:
+    shape = (int(shape),) if isinstance(shape, int) else tuple(shape)
+    n = math.prod(shape)
+    out = torch.empty((n,), dtype=dtype, device=device)
+    step = _jax_tile(out.device)
+    for s in range(0, n, step):
+        t = min(n, s + step)
+        y0, y1 = _jax_lanes(key, s, t, out.device)
+        out[s:t] = finish(y0 ^ y1)
+    return out.reshape(shape)
+
+
+def random_bits(key, shape, *, device=None) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (uint32) as int64 words."""
+    return _draw(key, shape, device, torch.int64, lambda w: w)
+
+
+def _unit(w: torch.Tensor) -> torch.Tensor:
+    # JAX sets the top 23 bits as the mantissa of a float in [1, 2) and
+    # subtracts 1: exactly (w >> 9) * 2^-23
+    return (w >> 9).to(torch.float32) * 2.0 ** -23
+
+
+def uniform(key, shape, *, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)``: f32 in [0, 1), bit-equal."""
+    return _draw(key, shape, device, torch.float32, _unit)
+
+
+# jax.random.normal draws its uniforms on (nextafter(-1, 0), 1)
+_NORMAL_LO = -0.99999994039535522461  # f32 nextafter(-1, 0)
+
+
+def normal(key, shape, *, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in f32: ``sqrt(2) * erfinv(u)``
+    over JAX's uniforms on ``(nextafter(-1, 0), 1)`` (to ~2e-5, the error
+    of XLA's f32 ``erf_inv``)."""
+    def finish(w):
+        lo = torch.tensor(_NORMAL_LO, dtype=torch.float32, device=w.device)
+        span = torch.tensor(1.0, dtype=torch.float32, device=w.device) - lo
+        u = torch.maximum(lo, _unit(w) * span + lo)
+        # erfinv in f64, rounded once: torch's f32 CPU erfinv differs by
+        # up to ~7e-5 between its vectorised and scalar paths
+        z = torch.erfinv(u.to(torch.float64)).to(torch.float32)
+        return z * torch.tensor(math.sqrt(2.0), dtype=torch.float32,
+                                device=w.device)
+    return _draw(key, shape, device, torch.float32, finish)
+
+
+def permutation(key, n: int, *, device=None) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` (int64): JAX's ``_shuffle``, a
+    stable sort by fresh 32-bit keys, ``ceil(3 ln n / ln(2^32 - 1))``
+    rounds, each keyed by the second half of a split."""
+    n = int(n)
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(M32))
+    for _ in range(rounds):
+        key, sub = split(key, 2)
+        order = torch.sort(random_bits(sub, n, device=x.device),
+                           stable=True).indices
+        x = x[order]
+    return x

@@ -17,11 +17,17 @@ version:
                                and the stochastic encode, one Hadamard block
                                at a time;
   ``pack_residues`` /          the packed sub-32-bit wire: field residues
-  ``unpack_residues``          <-> a dense little-endian 32-bit word stream.
+  ``unpack_residues``          <-> a dense little-endian 32-bit word stream;
+  ``quantize_mask``            the synchronous round's encode of one leaf:
+                               ``q(clip(x, ±vr) * s; u) + mask`` against
+                               given uniforms and an optional given mask;
+  ``dequantize``               its decode: ``f32(q) * inv``, with the f32
+                               multiplier ``inv`` chosen by the caller.
 
 Dispatch is by device, never by a flag: a CPU tensor runs the plain version,
 a CUDA tensor launches the hand-written Hopper kernel (``csrc/<name>.cu``;
-both codec directions live in ``csrc/pack_residues.cu``) or raises — there
+both codec directions live in ``csrc/pack_residues.cu``, K6 and K7 in
+``csrc/quantize_mask.cu``) or raises — there
 is no fallback from the card to the plain version.  Each
 wrapper counts its kernel launches (``.launches``) and its plain-version
 dispatches (``.plain_calls``) as plain integers, so a run can show that the
@@ -73,7 +79,7 @@ def _counted(fn):
 
 def _wrappers():
     return (quantize_mask_prf, weighted_quantize_accum, rotate_quantize_prf,
-            pack_residues, unpack_residues)
+            pack_residues, unpack_residues, quantize_mask, dequantize)
 
 
 def reset_counts() -> None:
@@ -131,6 +137,50 @@ def stochastic_round(xf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     floor = torch.floor(xf)
     bit = (u < (xf - floor)).to(torch.float32)
     return (floor + bit).to(torch.int32)
+
+
+def saturate_int32(v: torch.Tensor) -> torch.Tensor:
+    """Integral f32 -> int32 as XLA (and CUDA's ``__float2int_rz``)
+    convert: NaN to 0, out-of-range values and infinities saturate."""
+    v = torch.where(torch.isnan(v), torch.zeros_like(v), v)
+    v = v.clamp(-2.0 ** 31, 2.0 ** 31).to(torch.int64)
+    return v.clamp(-2 ** 31, 2 ** 31 - 1).to(torch.int32)
+
+
+def quantize_mask_plain(x: torch.Tensor, mask: Optional[torch.Tensor],
+                        uniforms: torch.Tensor, scale: float,
+                        value_range: float) -> torch.Tensor:
+    """Plain version of :func:`quantize_mask` (any device)."""
+    xf = x.to(torch.float32)
+    vr = torch.tensor(value_range, dtype=torch.float32, device=x.device)
+    # compares keep NaN, as jnp.clip does
+    xf = torch.where(xf < -vr, -vr, xf)
+    xf = torch.where(xf > vr, vr, xf)
+    xf = xf * torch.tensor(scale, dtype=torch.float32, device=x.device)
+    floor = torch.floor(xf)
+    q = saturate_int32(floor + (uniforms < (xf - floor)).to(torch.float32))
+    if mask is None:
+        return q
+    return prf.to_int32(prf.words_of(q) + prf.words_of(mask))
+
+
+def dequantize_plain(q: torch.Tensor, inv: float) -> torch.Tensor:
+    """Plain version of :func:`dequantize` (any device)."""
+    return q.to(torch.float32) * torch.tensor(inv, dtype=torch.float32,
+                                              device=q.device)
+
+
+def pallas_inverse(scale: float) -> float:
+    """The Pallas ``dequantize``'s multiplier: ``1.0 / scale`` in double,
+    rounded once to f32."""
+    return float(torch.tensor(1.0 / scale, dtype=torch.float32))
+
+
+def jit_inverse(scale: float) -> float:
+    """The multiplier of a jitted ``q / scale`` by a constant: XLA divides
+    in f32, ``f32(1) / f32(scale)``."""
+    return float(torch.tensor(1.0, dtype=torch.float32)
+                 / torch.tensor(scale, dtype=torch.float32))
 
 
 def quantize_mask_prf_plain(x: torch.Tensor, scale: float, slot: int,
@@ -267,9 +317,12 @@ _SIGNATURES = {
     "pack_residues": [_c_void_p, _c_void_p, _c_i64, _c_i64, _c_i32,
                       _c_void_p],
     "unpack_residues": [_c_void_p, _c_void_p, _c_i64, _c_i32, _c_void_p],
+    "quantize_mask": [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_i64,
+                      _c_f32, _c_f32, _c_i32, _c_void_p],
+    "dequantize": [_c_void_p, _c_void_p, _c_i64, _c_f32, _c_i32, _c_void_p],
 }
 # the csrc/ source (and library) of each launch function
-_SOURCE = {"unpack_residues": "pack_residues"}
+_SOURCE = {"unpack_residues": "pack_residues", "dequantize": "quantize_mask"}
 
 
 def _launcher(name: str):
@@ -490,4 +543,64 @@ def unpack_residues(words: torch.Tensor, size: int,
         torch.cuda.current_stream(words.device).cuda_stream)
     _raise_on(status, "unpack_residues")
     unpack_residues.launches += 1
+    return out
+
+
+def _vec(D: int, *ts: torch.Tensor) -> int:
+    """16-byte loads: a length that is a multiple of 4, aligned pointers."""
+    return int(D % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in ts))
+
+
+@_counted
+def quantize_mask(x: torch.Tensor, mask: Optional[torch.Tensor],
+                  uniforms: torch.Tensor, scale: float,
+                  value_range: float) -> torch.Tensor:
+    """Encode one flat vector: ``floor(xf) + [u < frac(xf)] (+ mask)``.
+
+    x, uniforms: (D,) f32; mask: (D,) int32 or None; ``xf = clip(x, ±
+    value_range) * f32(scale)`` (``value_range`` may be ``inf``).  Returns
+    (D,) int32, the mask added mod 2^32.  Replaces the Pallas
+    ``quantize_mask``.
+    """
+    if x.device.type == "cpu":
+        quantize_mask.plain_calls += 1
+        return quantize_mask_plain(x, mask, uniforms, scale, value_range)
+    _check_cuda(x, "x", torch.float32, 1)
+    _check_cuda(uniforms, "uniforms", torch.float32, 1)
+    (D,) = x.shape
+    ts = [x, uniforms]
+    if tuple(uniforms.shape) != (D,):
+        raise ValueError(f"uniforms shape {tuple(uniforms.shape)} != {(D,)}")
+    if mask is not None:
+        _check_cuda(mask, "mask", torch.int32, 1)
+        if tuple(mask.shape) != (D,):
+            raise ValueError(f"mask shape {tuple(mask.shape)} != {(D,)}")
+        ts.append(mask)
+    out = torch.empty((D,), dtype=torch.int32, device=x.device)
+    status = _launcher("quantize_mask")(
+        x.data_ptr(), None if mask is None else mask.data_ptr(),
+        uniforms.data_ptr(), out.data_ptr(), D, float(scale),
+        float(value_range), _vec(D, out, *ts),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(status, "quantize_mask")
+    quantize_mask.launches += 1
+    return out
+
+
+@_counted
+def dequantize(q: torch.Tensor, inv: float) -> torch.Tensor:
+    """``f32(q) * inv`` for (D,) int32 ``q``; ``inv`` is the f32 multiplier
+    (:func:`pallas_inverse` or :func:`jit_inverse` of the scale).  Replaces
+    the Pallas ``dequantize``."""
+    if q.device.type == "cpu":
+        dequantize.plain_calls += 1
+        return dequantize_plain(q, inv)
+    _check_cuda(q, "q", torch.int32, 1)
+    (D,) = q.shape
+    out = torch.empty((D,), dtype=torch.float32, device=q.device)
+    status = _launcher("dequantize")(
+        q.data_ptr(), out.data_ptr(), D, float(inv), _vec(D, q, out),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(status, "dequantize")
+    dequantize.launches += 1
     return out

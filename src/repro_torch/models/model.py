@@ -14,6 +14,11 @@ deepseek-coder-33b, minitron-4b); the other families raise
 ``NotImplementedError``.  ``decode_step`` updates the cache in place (and
 returns it); ``pos`` is a Python int.
 
+``build_mlp_classifier(cfg)`` builds the paper's own model, the dense-feature
+MLP binary classifier (``configs/mlp.py``); its ``init(key)`` draws the
+reference's ``jax.random.normal`` weights from the same key words (equal to
+~2e-5 before the ``fan_in ** -0.5`` scale).
+
 ``param_shapes`` gives the exact leaf paths and shapes of the JAX init and
 ``init_params`` draws random weights of those shapes with the same per-leaf
 scales (normal * 1/sqrt(fan_in), zero biases, unit norm scales) from a
@@ -37,6 +42,7 @@ from typing import Any, Callable, Dict, NamedTuple
 import torch
 
 from repro_torch import device as _device
+from repro_torch.kernels import prf
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -128,3 +134,60 @@ def build_model(cfg, *, device=None) -> Model:
         return L.unembed(cfg, emb, x), cache
 
     return Model(cfg, init, apply, loss_fn, init_cache, prefill, decode_step)
+
+
+# ---------------------------------------------------------------------------
+# The paper's dense-feature MLP binary classifier (configs/mlp.py)
+# ---------------------------------------------------------------------------
+def build_mlp_classifier(cfg, *, device=None) -> Model:
+    """Binary classifier on dense features — the paper's model class.
+
+    ``init(key)`` takes ``(k0, k1)`` key words: layer ``i``'s weight is
+    ``normal(fold_in(key, i), (din, dout)) * din ** -0.5``, its bias zero.
+    """
+    dev = _device.resolve(device)
+    act = {"relu": torch.relu, "tanh": torch.tanh}[cfg.activation]
+
+    def init(key):
+        dims = (cfg.num_features,) + tuple(cfg.hidden_dims) + (1,)
+        params = {}
+        for i, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
+            z = prf.normal(prf.fold_in(key, i), (din, dout), device=dev)
+            params[f"dense_{i}"] = {
+                "w": z * torch.tensor(din ** -0.5, dtype=torch.float32,
+                                      device=dev),
+                "b": torch.zeros((dout,), dtype=torch.float32, device=dev),
+            }
+        return params
+
+    def apply(params, batch):
+        x = batch["features"].to(torch.float32)
+        n = len(params)
+        for i in range(n):
+            p = params[f"dense_{i}"]
+            x = x @ p["w"] + p["b"]
+            if i < n - 1:
+                x = act(x)
+        return x[..., 0], torch.zeros((), dtype=torch.float32,
+                                      device=x.device)
+
+    def loss_fn(params, batch):
+        logit, _ = apply(params, batch)
+        y = batch["label"].to(torch.float32)
+        # numerically-stable sigmoid BCE
+        loss = (torch.clamp(logit, min=0) - logit * y
+                + torch.log1p(torch.exp(-torch.abs(logit))))
+        w = batch.get("weight")
+        if w is None:
+            loss = torch.mean(loss)
+        else:
+            loss = torch.mean(loss * w) / torch.clamp(torch.mean(w),
+                                                      min=1e-9)
+        acc = torch.mean(((logit > 0) == (y > 0.5)).to(torch.float32))
+        return loss, {"bce": loss, "accuracy": acc}
+
+    def _no_decode(*a, **k):
+        raise NotImplementedError("classifier has no decode path")
+
+    return Model(cfg, init, apply, loss_fn, _no_decode, _no_decode,
+                 _no_decode)

@@ -107,9 +107,12 @@ def _is_scannable(cfg) -> bool:
     return cfg.block_pattern is None and len(set(tail)) == 1 and len(tail) > 1
 
 
-def _layers(cfg, tree) -> Iterator[Tuple[str, Dict]]:
+def _layers(cfg, tree, *, unbind: bool = False) -> Iterator[Tuple[str, Dict]]:
     """(kind, one layer's subtree) in stack order; a stacked layer's leaves
-    are views into the ``scan`` tensors."""
+    are views into the ``scan`` tensors.  ``unbind`` takes all of a scan
+    leaf's layers in one ``unbind`` (whose gradient is one ``stack``, where
+    per-layer indexing would add a full-size zero tensor per layer); it
+    gives views that must not be written in place, so caches index."""
     kinds = cfg.layer_kinds
     if not _is_scannable(cfg):
         for i, kind in enumerate(kinds):
@@ -117,7 +120,14 @@ def _layers(cfg, tree) -> Iterator[Tuple[str, Dict]]:
         return
     for i in range(cfg.first_k_dense):
         yield kinds[i], tree[f"layer_{i}"]
-    for j in range(cfg.num_layers - cfg.first_k_dense):
+    n = cfg.num_layers - cfg.first_k_dense
+    if unbind:
+        paths, leaves = T.flatten(tree["scan"])
+        per = [a.unbind(0) for a in leaves]
+        for j in range(n):
+            yield kinds[-1], T.unflatten(paths, [u[j] for u in per])
+        return
+    for j in range(n):
         yield kinds[-1], T.tree_map(lambda a: a[j], tree["scan"])
 
 
@@ -142,7 +152,7 @@ def init_stack(cfg, generator: torch.Generator, device=None) -> Dict:
 
 def apply_stack(cfg, p, x, positions):
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, lp in _layers(cfg, p):
+    for kind, lp in _layers(cfg, p, unbind=True):
         x, aux = apply_block(cfg, lp, x, positions, kind)
         aux_total = aux_total + aux
     return x, aux_total

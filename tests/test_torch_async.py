@@ -106,6 +106,39 @@ def test_async_server_bit_equal_to_reference(mode, kw, bits, chunk):
             float(js.last_metrics[k]), rel=1e-6)
 
 
+
+@pytest.mark.parametrize("mode", ["client", "tee_stream", "tee"])
+def test_random_k_regular_session_bit_equal_to_reference(mode):
+    """A 6-slot session on a random 2-regular mask graph (the reference's
+    default for ``secure_agg_degree > 0``): the port draws the same
+    ``session_perm`` from each chunk's session key, so the buffers and the
+    params after a full session and a recovering flush are bit-equal."""
+    n = 6
+    rs = np.random.RandomState(5)
+    params = _model(rs)
+    deltas = [_model(rs, 0.05) for _ in range(n + 4)]
+    fl = dict(cohort_size=n, clip_norm=1.0, noise_multiplier=0.0,
+              secure_agg_bits=32, param_chunk_elems=40, secure_agg_degree=2)
+    kw = dict(buffer_size=n, mask_mode=mode, staleness_mode="constant")
+    js = JServer(_jx(params), JFL(**fl), **kw)
+    ts = AsyncServer(convert.params_from_numpy(params), FLConfig(**fl),
+                     device="cpu", **kw)
+    assert ts._spec.random_graph and ts._spec.mask_degree == 2
+    for d in deltas[:n]:
+        js.push(_jx(d), 0)
+        ts.push(convert.params_from_numpy(d), 0)
+    assert js.version == ts.version == 1
+    _assert_trees_equal(js.params, ts.params)
+    # session 1: slots 1 and 4 drop out; the flush recovers their shares
+    for slot, d in zip((0, 2, 3, 5), deltas[n:]):
+        js.push(_jx(d), 1, slot=slot)
+        ts.push(convert.params_from_numpy(d), 1, slot=slot)
+    if mode != "tee":
+        _assert_bufs_equal(js, ts)
+    frng = jax.random.PRNGKey(78)
+    assert js.flush(rng=frng) and ts.flush(rng=convert.key_from_numpy(frng))
+    _assert_trees_equal(js.params, ts.params)
+
 def test_client_push_words_and_interop():
     """ClientPush words (the packed 18-bit wire of a 2-chunk plan) are
     bit-equal; a converted reference ClientPush is ingested by the port
@@ -270,9 +303,10 @@ def test_server_opt_and_dp_match_reference(kind):
 
 @pytest.mark.parametrize("placement", ["device", "tee"])
 def test_dp_noise_draws_are_seeded_and_scaled(placement):
-    """DP noise comes from torch generators (same law as jax.random, other
-    numbers): a replay is bit-identical, and the noised update departs
-    from the noiseless one by about the configured std."""
+    """DP noise is seeded (device noise from chunk-keyed torch generators,
+    TEE noise the reference's normal draw): a replay is bit-identical, and
+    the noised update departs from the noiseless one by about the
+    configured std."""
     params, deltas = _setup(B, seed=4)
 
     def run(sigma):

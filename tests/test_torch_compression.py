@@ -10,9 +10,9 @@ parameters after a full session and after a flush that recovers a dropped
 slot.  Bit-exact runs use ``noise_multiplier=0``, constant staleness and
 deltas inside ``clip_norm``, as in ``test_torch_async.py``.
 
-Held to a tolerance: the ``enclave_wire_bits`` lane, whose stochastic
-quantize draws from a torch generator (the reference's
-``jax.random.uniform`` in law, not in numbers), within the reference's own
+The ``enclave_wire_bits`` lane is bit-equal too: its stochastic quantize
+draws the reference's ``jax.random.split`` + ``jax.random.uniform``
+(rebuilt in ``kernels.prf``); it also stays within the reference's own
 bound of ``0 < err < 0.05`` of the raw f32 uplink.
 """
 import math
@@ -360,8 +360,9 @@ def test_upload_bytes_lanes_metered_at_both_seams():
 def test_enclave_wire_quantizes_the_tee_uplink(mode):
     """enclave_wire_bits=8 rides a packed 8-bit field: the decode moves but
     stays within the reference's bound (0 < err < 0.05) of the raw f32
-    uplink, in the port and against the reference; the metered enclave
-    bytes are below 0.3 of the raw wire and equal the reference's."""
+    uplink, and the port's params are bit-equal to the reference's (the
+    same split keys and uniforms); the metered enclave bytes are below 0.3
+    of the raw wire and equal the reference's."""
     params, deltas = _params(), _deltas(B, seed=9, scale=0.1)
     fl = _fl(secure_agg_bits=32, param_chunk_elems=0)
     fle = dict(fl, enclave_wire_bits=8)
@@ -387,6 +388,7 @@ def test_enclave_wire_quantizes_the_tee_uplink(mode):
         x.numpy() for x in T.leaves(raw.params)]
     jl8, jlraw = jax.tree.leaves(j8.params), jax.tree.leaves(jraw.params)
     assert diff(tlraw, jlraw) == 0.0
+    assert diff(tl8, jl8) == 0.0
     for err in (diff(tl8, tlraw), diff(tl8, jlraw), diff(jl8, jlraw)):
         assert 0.0 < err < 0.05
     ebytes = _lane_bytes(srv8.telemetry, "enclave")
@@ -397,8 +399,8 @@ def test_enclave_wire_quantizes_the_tee_uplink(mode):
 
 def test_enclave_quantize_dequantize_law():
     """The stochastic quantize is unbiased and seeded: a replay is
-    bit-identical, each level is floor or ceil of x*scale, and the mean
-    over draws converges to x (the law of the reference's draw)."""
+    bit-identical, each level is floor or ceil of x*scale, the mean
+    over draws converges to x, and the draw is the reference's."""
     from repro_torch.core.fl import secure_agg as sa
     x = torch.linspace(-5.0, 5.0, 1001)
     q = sa.quantize(x, 8, 4.0, (1, 2))
@@ -416,6 +418,11 @@ def test_enclave_quantize_dequantize_law():
     np.testing.assert_array_equal(
         np.asarray(jsa.quantize(jnp.asarray(x.numpy()), 8, 4.0)),
         sa.quantize(x, 8, 4.0).numpy())
+    jkey = jax.random.PRNGKey(11)
+    np.testing.assert_array_equal(
+        np.asarray(jax.jit(lambda a, k: jsa.quantize(a, 8, 4.0, k))(
+            jnp.asarray(x.numpy()), jkey)),
+        sa.quantize(x, 8, 4.0, convert.key_from_numpy(jkey)).numpy())
 
 
 def test_operators_are_derived_once_per_session(monkeypatch):

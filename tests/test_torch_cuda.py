@@ -6,11 +6,17 @@ machine without them:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import pytest
 import torch
 
+from repro_torch import tree as T
 from repro_torch.configs import registry
+from repro_torch.configs.base import FLConfig
+from repro_torch.core.fl import round as fl_round
 from repro_torch.core.fl import secure_agg as sa
+from repro_torch.kernels import dp_clip as kdp
 from repro_torch.kernels import flash_decode as kfd
 from repro_torch.kernels import prf
 from repro_torch.kernels import secure_agg as ksa
@@ -78,7 +84,9 @@ def test_cuda_kernels_match_plain_versions(cuda):
         "weighted_quantize_accum": {"launches": 3, "plain_calls": 0},
         "rotate_quantize_prf": {"launches": 3, "plain_calls": 0},
         "pack_residues": {"launches": 3, "plain_calls": 0},
-        "unpack_residues": {"launches": 3, "plain_calls": 0}}
+        "unpack_residues": {"launches": 3, "plain_calls": 0},
+        "quantize_mask": {"launches": 0, "plain_calls": 0},
+        "dequantize": {"launches": 0, "plain_calls": 0}}
 
 
 @pytest.mark.cuda
@@ -125,3 +133,67 @@ def test_cuda_generate_reduced_matches_teacher_forcing(cuda):
     for i, step in enumerate(gen.logits):
         torch.testing.assert_close(step, logits[:, 15 + i], rtol=0,
                                    atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_round_kernels_match_plain_versions(cuda):
+    """K6 and K7 bit-equal (edge inputs, both multipliers), K3 within rtol
+    1e-5 and K8 within 1e-6 of the largest |s x| sum (f32 sums)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    ksa.reset_counts()
+    kdp.reset_counts()
+    for D in (1, 1000, 100_003, 100_004):
+        x = torch.randn(D, generator=g, device=cuda) * 3.0
+        x[0] = math.inf if D > 1 else math.nan
+        u = torch.rand(D, generator=g, device=cuda)
+        m = torch.randint(-2 ** 31, 2 ** 31, (D,), generator=g, device=cuda,
+                          dtype=torch.int64).to(torch.int32)
+        for mask in (m, None):
+            assert torch.equal(
+                ksa.quantize_mask(x, mask, u, 131067.5, math.inf),
+                ksa.quantize_mask_plain(x, mask, u, 131067.5, math.inf))
+        for inv in (ksa.pallas_inverse(33554430.75),
+                    ksa.jit_inverse(33554430.75)):
+            assert torch.equal(ksa.dequantize(m, inv),
+                               ksa.dequantize_plain(m, inv))
+        xs = torch.randn(3, D, generator=g, device=cuda)
+        s = torch.rand(3, generator=g, device=cuda)
+        torch.testing.assert_close(kdp.sq_norms(xs), kdp.sq_norms_plain(xs),
+                                   rtol=1e-5, atol=0)
+        top = float((s[:, None] * xs).abs().sum(0).max())
+        assert float((kdp.scale_accum(xs, s)
+                      - kdp.scale_accum_plain(xs, s)).abs().max()) \
+            <= 1e-6 * top
+    assert ksa.quantize_mask.launches == 8 and ksa.dequantize.launches == 8
+    assert kdp.sq_norms.launches == 4 and kdp.scale_accum.launches == 4
+    assert ksa.quantize_mask.plain_calls == kdp.sq_norms.plain_calls == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [32, 0])
+def test_cuda_round_matches_the_cpu_round(cuda, bits):
+    """A qwen2-reduced round on the card (kernels) against the same round on
+    the CPU (plain versions): local SGD and f32 sums differ in the last
+    bits, so the params agree to 1e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = registry.get_config("qwen2-1.5b", reduced=True)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 1, 16),
+                                     generator=g)}
+    fl = FLConfig(cohort_size=4, local_lr=0.2, noise_multiplier=0.0,
+                  secure_agg_bits=bits, secure_agg_masked=bits > 0)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = T.tree_map(lambda x: x.to(dev), params)
+        step = fl_round.build_round_step(model.loss_fn, fl, cohort_size=4,
+                                         clients_per_chunk=2, device=dev)
+        ksa.reset_counts()
+        kdp.reset_counts()
+        new, _ = step(fl_round.init_fl_state(p, fl), dict(batch), (3, 4))
+        outs[dev] = new.params
+    assert kdp.sq_norms.launches == 2 * len(T.leaves(params))
+    assert ksa.quantize_mask.plain_calls == kdp.sq_norms.plain_calls == 0
+    for a, b in zip(T.leaves(outs["cpu"]), T.leaves(outs["cuda"])):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-5)

@@ -219,7 +219,20 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
         ksa.unpack_residues(q[:38], 64, 19)
     with pytest.raises(ValueError, match="expected 38"):
         ksa.unpack_residues(q[:37], 64, 19)
+    with pytest.raises(ValueError, match="CUDA"):
+        ksa.quantize_mask(x, None, x, SCALE, 4.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ksa.dequantize(q, 1e-4)
     assert ksa.counts() == {name: {"launches": 0, "plain_calls": 0} for name in
                             ("quantize_mask_prf", "weighted_quantize_accum",
                              "rotate_quantize_prf", "pack_residues",
-                             "unpack_residues")}
+                             "unpack_residues", "quantize_mask",
+                             "dequantize")}
+    from repro_torch.kernels import dp_clip as kdp
+    kdp.reset_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        kdp.sq_norms(x.reshape(2, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        kdp.scale_accum(x.reshape(2, 8), x[:2])
+    assert kdp.counts() == {name: {"launches": 0, "plain_calls": 0}
+                            for name in ("sq_norms", "scale_accum")}

@@ -1,9 +1,8 @@
 """The port's secure-agg field codec, mask graphs, session masks and dropout
 recovery against the JAX package (``repro.core.fl.secure_agg``).
 
-All bit-equal.  The random k-regular graph case builds the port's session
-from the reference's own permutation (the port does not draw
-``session_perm`` yet, and says so by raising).
+All bit-equal, the random k-regular graphs' ``session_perm`` (the
+reference's ``jax.random.permutation``) included.
 """
 import jax
 import jax.numpy as jnp
@@ -59,7 +58,9 @@ def test_field_modulus_and_degree_rules():
 def test_graph_masks_and_recovery_match_reference(n, degree, random):
     D = 203
     perm = np.asarray(jsa.session_perm(n, KEY)) if random else None
-    tperm = None if perm is None else torch.tensor(perm)
+    tperm = None if perm is None else sa.session_perm(n, KW)
+    if random:
+        np.testing.assert_array_equal(perm, tperm.numpy())
     jsess = jsa.MaskSession(key=KEY, num_slots=n,
                             degree=jsa.effective_degree(n, degree),
                             perm=None if perm is None else jnp.asarray(perm))
@@ -114,8 +115,18 @@ def test_recovery_sweep_is_tiled_and_reduce_expand_round_trip(monkeypatch):
 
 
 def test_random_graph_session_is_not_drawn_yet():
-    with pytest.raises(NotImplementedError):
-        sa.make_session(KW, 10, degree=4, random_graph=True)
-    # circulant and complete sessions are fine
-    assert sa.make_session(KW, 10, degree=4).degree == 4
-    assert sa.make_session(KW, 4, degree=4).degree == 0
+    """(Named when the port could not draw it.)  ``make_session`` now draws
+    the random k-regular graph from the key, as the reference does: the
+    same permutation, neighbour table and edges."""
+    for n, k in ((10, 4), (37, 6), (2000, 2)):
+        sess = sa.make_session(KW, n, degree=k, random_graph=True)
+        jsess = jsa.make_session(KEY, n, degree=k, random_graph=True)
+        assert sess.degree == jsess.degree == k
+        np.testing.assert_array_equal(np.asarray(jsess.perm),
+                                      np.asarray(sess.perm))
+        if n <= 40:
+            np.testing.assert_array_equal(np.asarray(jsess.neighbor_table()),
+                                          sess.neighbor_table().numpy())
+    # circulant and complete sessions carry no permutation
+    assert sa.make_session(KW, 10, degree=4).perm is None
+    assert sa.make_session(KW, 4, degree=4, random_graph=True).degree == 0
