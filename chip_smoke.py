@@ -48,23 +48,40 @@ Phases (each prints its seconds):
      a ``secure_agg_masked`` round and an unmasked one at 2 layers (depth
      cut for time), bit-equal; ``--classifier`` for 20 rounds, whose loss
      falls;
+  2e. federated analytics and the control plane: the FA example's twin
+     (``repro_torch.examples.federated_analytics``) at its own size (50,000
+     devices x 4 features, 256 thresholds, flip 0.1; estimates against the
+     true statistics); ``tests/test_system.py``'s pipeline at its own size
+     (``repro_torch.examples.paper_pipeline``: a 20,000 x 32 FA sample,
+     minmax over 128 thresholds, the label ratio at flip 0.1,
+     ``DevicePopulation(512)``, 40 DP-FL rounds at cohort 64, DP metrics;
+     test_system's four gates); a fleet-scale query through
+     ``threshold_cdf`` (2^20 devices x 32 features x 128 thresholds, flip
+     0.1, 16 device tiles; a monotone CDF within 0.01 of the values'
+     empirical CDF), its time split into torch draws, K9 and the rest;
   3. the exact kernel launch counts of each path (and zero plain-version
      calls): K10 once per layer per decode step of each serve run; per
      training round at cohort 4 (one chunk of 4 clients, 14 leaves) K3 14,
-     K6 56 and K7 14 at bits 32, K3 14 and K8 14 at bits 0;
+     K6 56 and K7 14 at bits 32, K3 14 and K8 14 at bits 0; K9 once per
+     device tile of each CDF vote (2 in the example, 1 in the pipeline, 16
+     in the fleet query);
   4. the card's name and power limit, each kernel's time at the main path's
      largest shape beside its bound and its plain version's time; K10's
      device time (calls queued behind a sleep kernel) at the serve shape
      and at the decode_32k shape, beside one
-     ``scaled_dot_product_attention`` call on the same inputs.
+     ``scaled_dot_product_attention`` call on the same inputs; K9 at the
+     fleet query's launch shape (2^16 x 32 x 128).
 
-Phase 1 also holds K10 (``flash_decode``, float attention) to its plain
-version within rtol = atol = 2e-5 (f32 sums in another order): f32 and bf16
-K/V, window 0 and > 0, wrapped ring buffers, partly filled caches, ragged
-W, the serve path's shapes; K6 (``quantize_mask``, with and without a mask,
-ragged D, +-inf, NaN and saturating inputs) and K7 (``dequantize``, both
-multipliers) bit-equal; K3 (``sq_norms``) within rtol 1e-5 and K8
-(``scale_accum``) within 1e-6 of the largest |s_c x_c| sum (f32 sums).
+Phase 1 also holds K9 (``bit_counts``) bit-equal to its plain version
+(ragged N and F, T up to 256, p in {0, 0.1, 0.5, 1}, boundary uniforms, NaN
+values, +-inf thresholds, the fleet tile), and K10 (``flash_decode``, float
+attention) to its plain version within rtol = atol = 2e-5 (f32 sums in
+another order): f32 and bf16 K/V, window 0 and > 0, wrapped ring buffers,
+partly filled caches, ragged W, the serve path's shapes; K6
+(``quantize_mask``, with and without a mask, ragged D, +-inf, NaN and
+saturating inputs) and K7 (``dequantize``, both multipliers) bit-equal; K3
+(``sq_norms``) within rtol 1e-5 and K8 (``scale_accum``) within 1e-6 of
+the largest |s_c x_c| sum (f32 sums).
 Phase 4 times K3, K6, K7 and K8 at the training round's largest leaf
 (4 x 385,351,680) beside one library call each (``vector_norm``,
 ``scales @ x``, ``torch.mul``; none computes K6).
@@ -135,6 +152,15 @@ ROUND_LEAF = 28 * 1536 * 8960
 # K10's timed shapes: (B, W) of the serve path and of decode_32k
 # (configs/shapes.py: batch 128, one qwen2 layer's 32768-deep cache)
 FD_SHAPES = (("serve", 8, 2080), ("decode_32k", 128, 32768))
+# phase 2e: a fleet-scale FA query through threshold_cdf: one statistics
+# cohort of 2^20 devices over the paper's 32 dense features and
+# test_system's 128-threshold grid, randomized response at 0.1; K9 votes
+# 2^16 devices a launch (core/analytics/bitagg.py VOTE_TILE_CUDA)
+FLEET_DEVICES, FLEET_FEATURES, FLEET_THRESHOLDS = 1 << 20, 32, 128
+FLEET_FLIP, FLEET_TILE = 0.1, 1 << 16
+FLEET_TOL = 0.01  # the voted CDF against the values' empirical CDF
+# K9's work per vote: compare, two uniform compares, and, add, add
+K9_OPS = 6
 
 
 def log(msg: str) -> None:
@@ -270,6 +296,38 @@ def kernel_parity(torch) -> None:
         "versions and round-tripped")
     flash_decode_parity(torch, g)
     round_kernel_parity(torch, g)
+    bitagg_parity(torch, g)
+
+
+def bitagg_parity(torch, g) -> None:
+    """K9 bit-equal to its plain version: ragged N and F, T in {1, 64, 128,
+    256}, p in {0, 0.1, 0.5, 1}, uniforms at f32(p/2) and f32(p), NaN
+    values, +-inf thresholds, and the fleet query's launch shape."""
+    import math
+    from repro_torch.kernels import bitagg as k9
+    cases = [(N, F, T, p) for N, F in ((1, 1), (777, 3), (4097, 5))
+             for T in (1, 64, 128, 256) for p in (0.0, 0.1, 0.5, 1.0)]
+    cases += [(FLEET_TILE, FLEET_FEATURES, FLEET_THRESHOLDS, p)
+              for p in (0.0, FLEET_FLIP)]
+    for N, F, T, p in cases:
+        v = torch.randn(N, F, generator=g, device="cuda") * 2.0
+        v.view(-1)[::97] = math.nan
+        thr = torch.sort(torch.randn(T, generator=g, device="cuda")).values
+        thr[0] = -math.inf
+        if T > 1:
+            thr[-1] = math.inf
+        u = torch.rand(N, F, T, generator=g, device="cuda")
+        edge = torch.tensor([p / 2.0, p, 0.0], device="cuda")
+        u.view(-1)[::101] = edge.repeat(-(-u.numel() // 303))[
+            :u.view(-1)[::101].numel()]
+        got = k9.bit_counts(v, thr, u, p)
+        want = k9.bit_counts_plain(v, thr, u, p)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"bit_counts != plain (N={N}, F={F}, T={T}, p={p})")
+        del v, u, got, want
+    torch.cuda.empty_cache()
+    log(f"  bit_counts: {len(cases)} cases bit-equal to the plain version")
 
 
 def round_kernel_parity(torch, g) -> None:
@@ -897,6 +955,141 @@ def empty_cache(torch) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 2e: federated analytics and the control plane
+# ---------------------------------------------------------------------------
+def _span_ms(tel, name: str) -> list:
+    return [sp.dur_ns / 1e6 for sp in tel.spans if sp.name == name]
+
+
+def analytics_path(torch, seed: int, counts: dict, smi: str) -> None:
+    """Phase 2e; ``counts[run]`` gets the kernel counts of each run."""
+    import math
+    import numpy as np
+    from repro_torch.core import telemetry as tele
+    from repro_torch.core.analytics import bitagg as fa
+    from repro_torch.data.synthetic import ClassifierTask
+    from repro_torch.examples import federated_analytics as ex
+    from repro_torch.examples import paper_pipeline as pp
+    from repro_torch.kernels import prf
+
+    # (a) the FA example at its own size: estimates against the truth
+    session = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = ex.main(["--device", DEVICE], session=session)
+    sync(torch)
+    ex_s = time.perf_counter() - t0
+    counts["fa-example"] = kernel_counts()
+    check(rc == 0, f"federated_analytics: exit {rc}")
+    # a debiased 1-bit mean over N devices: std <= (hi-lo)/2/(1-p)/sqrt(N)
+    sigma = (ex.HI - ex.LO) * 0.5 / (1 - ex.FLIP) / math.sqrt(ex.DEVICES)
+    err = float(np.abs(session["mean_est"] - session["mean_true"]).max())
+    check(err <= 5 * sigma, f"FA means off by {err:.1f} > 5 sigma "
+          f"({5 * sigma:.1f})")
+    grid = (ex.HI - ex.LO) / (ex.THRESHOLDS - 1)
+    perr = max(float(np.abs(e - t).max())
+               for e, t in session["percentiles"].values())
+    check(perr <= 2 * grid, f"FA percentiles off by {perr:.1f} > two grid "
+          f"steps ({2 * grid:.1f})")
+    check(abs(session["ratio"] - 0.12) <= 0.03,
+          f"FA label ratio {session['ratio']:.4f}")
+    f = session["factors"]
+    want = (session["raw"] - float(f.shift[0])) / float(f.scale[0])
+    check(session["spec_version"] == 2 and math.isfinite(
+        session["normalized"]) and abs(session["normalized"] - want)
+          <= 1e-5 * max(1.0, abs(want)),
+          f"pushed spec: normalized {session['normalized']} != {want}")
+    log(f"  FA example ({ex.DEVICES:,} devices x {ex.FEATURES} features, "
+        f"{ex.THRESHOLDS} thresholds, flip {ex.FLIP}): {ex_s:.1f} s; means "
+        f"within {err:.1f} of the truth (5 sigma {5 * sigma:.1f}), "
+        f"percentiles within {perr:.1f} (two grid steps {2 * grid:.1f}), "
+        f"P(y=1) {session['ratio']:.3f}")
+    del session
+
+    # (b) tests/test_system.py's pipeline at its own size, its four gates
+    session = {}
+    tel = tele.Telemetry(record_spans=True, fence=True)
+    prev = tele.set_default(tel)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = pp.main(["--device", DEVICE], session=session)
+        sync(torch)
+        pp_s = time.perf_counter() - t0
+        counts["fa-pipeline"] = kernel_counts()
+    finally:
+        tele.set_default(prev)
+    check(rc == 0, f"paper_pipeline: exit {rc}")
+    losses = session["losses"]
+    late = statistics.mean(losses[-5:])
+    check(late < 0.88 * losses[0], f"pipeline loss {losses[0]:.4f} -> "
+          f"{late:.4f} (gate: < 0.88 x the first)")
+    check(abs(session["pos_ratio"] - 0.1) <= 0.03,
+          f"pipeline P(y=1) {session['pos_ratio']:.4f} (gate: 0.1 +- 0.03)")
+    auc = float(session["derived"]["roc_auc"])
+    check(auc > 0.70, f"pipeline roc_auc {auc:.4f} (gate: > 0.70)")
+    eps = session["accountant"].epsilon(1e-6)
+    check(math.isfinite(eps) and eps > 0, f"pipeline epsilon {eps}")
+    rounds = _span_ms(tel, "round.execute")
+    vote = _span_ms(tel, "fa.vote")
+    parts = round_breakdown(tel)
+    split = "; ".join(
+        f"{k.split('.')[1]} {statistics.median(b[k] for b in parts):.1f}"
+        for k in ROUND_PARTS)
+    log(f"  pipeline ({pp.FA_DEVICES:,}-device FA sample, "
+        f"{pp.THRESHOLDS} thresholds; {pp.ROUNDS} rounds at cohort "
+        f"{pp.COHORT}): {pp_s:.1f} s; FA vote {vote[0]:.1f} ms; round "
+        f"median {statistics.median(rounds):.1f} ms (first "
+        f"{rounds[0]:.1f}) = {split} (medians, ms; encode without its "
+        f"uniforms and sums); loss {losses[0]:.4f} -> {late:.4f}; P(y=1) "
+        f"{session['pos_ratio']:.4f}; roc_auc {auc:.4f}; eps(1e-6) "
+        f"{eps:.2f}; {smi}")
+    del session
+
+    # (c) a fleet-scale FA query: monotone, within FLEET_TOL of the truth
+    task = ClassifierTask(num_features=FLEET_FEATURES, pos_ratio=0.1, seed=7)
+    vals = torch.from_numpy(task.sample_devices(
+        FLEET_DEVICES, rng_seed=seed + 77)["features_raw"]).to(DEVICE)
+    thr = fa.linspace(-4096.0, 4096.0, FLEET_THRESHOLDS, device=DEVICE)
+    tel = tele.Telemetry(record_spans=True, fence=True)
+    prev = tele.set_default(tel)
+    try:
+        reset_counts()
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+        cdf = fa.threshold_cdf(vals, thr, prf.PRNGKey(seed), FLEET_FLIP)
+        sync(torch)
+        counts["fa-fleet"] = kernel_counts()
+    finally:
+        tele.set_default(prev)
+    peak = ((torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            if DEVICE == "cuda" else float("nan"))
+    total = _span_ms(tel, "fa.vote")[0]
+    draws = sum(_span_ms(tel, "fa.vote.draws"))
+    k9_ms = sum(_span_ms(tel, "fa.vote.bit_counts"))
+    srt = torch.sort(vals, dim=0).values.T.contiguous()
+    emp = torch.searchsorted(srt, thr.expand(FLEET_FEATURES, -1).contiguous(),
+                             right=True).to(torch.float32) / FLEET_DEVICES
+    gap = float((cdf - emp).abs().max())
+    check(bool(torch.isfinite(cdf).all())
+          and bool((cdf[:, 1:] >= cdf[:, :-1]).all()),
+          "fleet CDF not finite and monotone")
+    check(gap <= FLEET_TOL, f"fleet CDF off the empirical CDF by {gap:.4f} "
+          f"> {FLEET_TOL}")
+    tiles = len(_span_ms(tel, "fa.vote.bit_counts"))
+    log(f"  fleet FA query ({FLEET_DEVICES:,} devices x {FLEET_FEATURES} x "
+        f"{FLEET_THRESHOLDS}, flip {FLEET_FLIP}, {tiles} tiles): "
+        f"{total:.1f} ms = draws "
+        f"{draws:.1f} + K9 {k9_ms:.2f} + rest {total - draws - k9_ms:.1f}; "
+        f"peak device memory {peak:.2f} GiB above the values; max |CDF - "
+        f"empirical| {gap:.5f}; {smi}")
+    del vals, cdf, srt, emp
+    empty_cache(torch)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel times at the main path's largest shape
 # ---------------------------------------------------------------------------
 def _cycled(fn, n: int):
@@ -1222,6 +1415,33 @@ def round_kernel_times(torch, launches, smi: str) -> list:
     return out
 
 
+def bitagg_time(torch, launches, smi: str) -> dict:
+    """K9 at the fleet query's launch shape: kernel (CUDA events), plain
+    version (host clock, once); no torch call computes it."""
+    from repro_torch.kernels import bitagg as k9
+    g = torch.Generator(device="cuda").manual_seed(5)
+    N, F, T = FLEET_TILE, FLEET_FEATURES, FLEET_THRESHOLDS
+    v = torch.randn(N, F, generator=g, device="cuda") * 500.0
+    thr = torch.linspace(-4096.0, 4096.0, T, device="cuda")
+    u = torch.rand(N, F, T, generator=g, device="cuda")
+    got = k9.bit_counts(v, thr, u, FLEET_FLIP)
+    plain_ms, want = _plain_ms(torch, lambda: k9.bit_counts_plain(
+        v, thr, u, FLEET_FLIP))
+    check(torch.equal(got, want), "bit_counts != plain at the fleet tile")
+    del got, want
+    ms = _cuda_ms(torch, lambda: k9.bit_counts(v, thr, u, FLEET_FLIP), 10)
+    e = _entry("bit_counts", "src/repro_torch/kernels/csrc/bitagg.cu",
+               "src/repro/kernels/bitagg.py:39", launches["bit_counts"], ms,
+               plain_ms, K9_OPS * N * F * T,
+               4 * (N * F * T + N * F + T + F * T))
+    log(f"  bit_counts ({N}x{F}x{T}): {ms:.3f} ms (bound {e['bound_ms']:.3f} "
+        f"ms by {e['bound_by']}; plain {plain_ms:.1f} ms; library none); "
+        f"{smi}")
+    del v, u
+    empty_cache(torch)
+    return e
+
+
 def _entry(name, source, replaces, launches, ms, plain_ms, ops, nbytes, *,
            max_abs_err=0, library_ms=None):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1235,19 +1455,22 @@ def _entry(name, source, replaces, launches, ms, plain_ms, ops, nbytes, *,
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels import bitagg as k9
     from repro_torch.kernels import dp_clip as kdp
     from repro_torch.kernels import flash_decode as kfd
     from repro_torch.kernels import secure_agg as ksa
     ksa.reset_counts()
     kfd.reset_counts()
     kdp.reset_counts()
+    k9.reset_counts()
 
 
 def kernel_counts() -> dict:
+    from repro_torch.kernels import bitagg as k9
     from repro_torch.kernels import dp_clip as kdp
     from repro_torch.kernels import flash_decode as kfd
     from repro_torch.kernels import secure_agg as ksa
-    return {**ksa.counts(), **kfd.counts(), **kdp.counts()}
+    return {**ksa.counts(), **kfd.counts(), **kdp.counts(), **k9.counts()}
 
 
 def main() -> int:
@@ -1299,6 +1522,9 @@ def main() -> int:
     with Phase("phase 2d: training qwen2-1.5b at full width and depth"):
         train_path(torch, args.seed, counts, smi)
 
+    with Phase("phase 2e: federated analytics and the control plane"):
+        analytics_path(torch, args.seed, counts, smi)
+
     with Phase("phase 3: kernels on the main path"):
         # launches per path: one per chunk of every push (or flush) that
         # runs the kernel; 14 pushes and 2 flushes per run
@@ -1325,6 +1551,7 @@ def main() -> int:
                          "dequantize")
         for path in ("uncompressed", "compressed"):
             want[path]["flash_decode"] = 0
+            want[path]["bit_counts"] = 0
             want[path].update(dict.fromkeys(round_kernels, 0))
         zero = dict.fromkeys(want["compressed"], 0)
         # serving: K10 once per layer per decode step, nothing else
@@ -1346,6 +1573,18 @@ def main() -> int:
             zero, sq_norms=CLASSIFIER_ROUNDS * CLASSIFIER_CHUNKS * Lc,
             quantize_mask=CLASSIFIER_ROUNDS * CLASSIFIER_COHORT * Lc,
             dequantize=CLASSIFIER_ROUNDS * Lc)
+        # analytics: K9 once per device tile of each CDF vote (the example's
+        # percentile query and its minmax factors; the pipeline's minmax
+        # factors; the fleet query's 16 tiles), plus the pipeline's rounds:
+        # cohort 64 in 4 chunks of 16, 6 leaves
+        from repro_torch.examples import paper_pipeline as pp
+        pp_chunks = pp.COHORT // pp.CLIENTS_PER_CHUNK
+        want["fa-example"] = dict(zero, bit_counts=2)
+        want["fa-pipeline"] = dict(
+            zero, bit_counts=1, sq_norms=pp.ROUNDS * pp_chunks * Lc,
+            quantize_mask=pp.ROUNDS * pp.COHORT * Lc,
+            dequantize=pp.ROUNDS * Lc)
+        want["fa-fleet"] = dict(zero, bit_counts=FLEET_DEVICES // FLEET_TILE)
         launches = {}
         for path, got in counts.items():
             runs = {k: v["launches"] for k, v in got.items()}
@@ -1365,6 +1604,7 @@ def main() -> int:
         entries = kernel_times(torch, launches)
         entries.append(flash_decode_times(torch, launches["flash_decode"]))
         entries += round_kernel_times(torch, launches, smi)
+        entries.append(bitagg_time(torch, launches, smi))
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

@@ -27,13 +27,14 @@ package.
 
 Bit-exactness with the JAX package holds for every integer and every float
 op here except two reductions: the whole-model squared norm is summed in
-another order, and (with noise on) Gaussian draws come from torch
-generators.  While no row is clipped the clip scale is exactly 1.0 and the
-engines agree bit for bit.  Scalar divisions use 0-dim tensors on the data's
-device (a CUDA division by a Python scalar is a multiply by its
-reciprocal), except where the reference divides by a compile-time constant
-inside ``jit``: XLA compiles that as a multiply by the f32 reciprocal, and
-the port's decode does the same.
+another order, and (with noise on) the Gaussian draws are
+``jax.random.normal`` rebuilt by ``kernels.prf.normal`` (to ~2e-5 of the
+std).  While no row is clipped and the noise is off the clip scale is
+exactly 1.0 and the engines agree bit for bit.  Scalar divisions use 0-dim
+tensors on the data's device (a CUDA division by a Python scalar is a
+multiply by its reciprocal), except where the reference divides by a
+compile-time constant inside ``jit``: XLA compiles that as a multiply by
+the f32 reciprocal, and the port's decode does the same.
 """
 from __future__ import annotations
 
@@ -473,9 +474,8 @@ def encode_plan_flat(xs: Sequence[torch.Tensor], weight, slot: int,
     for c, (ck, x) in enumerate(zip(plan.chunks, xs)):
         xw = x * (weight * clip_scale)
         if spec.dev_noise > 0.0:
-            g = dp.generator(plan.chunk_noise_key(rng, c), dev)
-            noise = torch.randn(x.shape, generator=g, dtype=torch.float32,
-                                device=dev)
+            noise = prf.normal(plan.chunk_noise_key(rng, c), x.shape,
+                               device=dev)
             xw = xw + noise * (spec.dev_noise * weight)
         if ops is not None:
             rows.append(_encode_compressed(xw, ck, ops[c], wire[c], slot,
@@ -573,16 +573,16 @@ def plan_buffer_noise_and_uniforms(rng, B: int, spec: AggregationSpec,
     """Per-chunk tuples of the batched flush's stochastic draws.
 
     Uniforms: the per-row counter streams at each chunk's global offset
-    (bit-identical to the JAX draw).  Device noise: chunk-keyed torch
-    generators (equal law, other numbers).
+    (bit-identical to the JAX draw).  Device noise: the reference's
+    ``normal(chunk_noise_key(rng, c), (B, size))`` (to ~2e-5); padded tails
+    get zero noise.
     """
     noise = None
     if spec.dev_noise > 0.0:
         noise = []
         for c, ck in enumerate(plan.chunks):
-            g = dp.generator(plan.chunk_noise_key(rng, c), device)
-            n = torch.randn((B, ck.size), generator=g, dtype=torch.float32,
-                            device=device)
+            n = prf.normal(plan.chunk_noise_key(rng, c), (B, ck.size),
+                           device=device)
             if ck.padded > ck.size:
                 n = torch.nn.functional.pad(n, (0, ck.padded - ck.size))
             noise.append(n)

@@ -4,8 +4,6 @@ Port of ``repro.core.fl.dp``.  Clipping is arithmetic and matches the JAX
 function up to the order of the float sum in the norm.  ``add_noise`` draws
 the reference's own noise: ``jax.random.split`` + ``jax.random.normal``
 rebuilt by ``kernels.prf`` (equal to ~2e-5 per unit of std).
-:func:`generator` seeds a ``torch.Generator`` from key words for the draws
-held only to the reference's law (the engines' chunk-keyed device noise).
 """
 from __future__ import annotations
 
@@ -37,19 +35,6 @@ def clip_update(update, clip_norm: float) -> Tuple:
     clipped = T.tree_map(
         lambda x: (x.to(torch.float32) * scale).to(x.dtype), update)
     return clipped, nrm, scale < 1.0
-
-
-def generator(key, device) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded from PRF key words.
-
-    The seed is a Threefry hash of both words: the CPU generator keeps only
-    the seed's low 32 bits, so keys differing in ``k0`` alone would
-    otherwise draw the same numbers there.
-    """
-    h0, h1 = prf.threefry2x32(*prf.key_words(key), 0, 0)
-    g = torch.Generator(device=device)
-    g.manual_seed((h0 << 32 | h1) & ((1 << 63) - 1))
-    return g
 
 
 def add_noise(update, key, stddev: float):

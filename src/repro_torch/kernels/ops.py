@@ -2,12 +2,13 @@
 
 Each function runs the hand-written Hopper kernel on CUDA tensors and its
 plain PyTorch version on CPU tensors (the kernel modules dispatch by
-device).  ``fa_bit_counts`` waits for the analytics slice, which ports K9.
+device).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import bitagg as _bitagg
 from repro_torch.kernels import dp_clip as _dp_clip
 from repro_torch.kernels import flash_decode as _flash
 from repro_torch.kernels import secure_agg as _sa
@@ -32,9 +33,7 @@ def secure_agg_decode(q, scale: float):
 
 
 def fa_bit_counts(values, thresholds, uniforms, flip_prob: float):
-    raise NotImplementedError(
-        "bit_counts (K9) is ported with the analytics slice "
-        "(ROADMAP Queue 1, item 10)")
+    return _bitagg.bit_counts(values, thresholds, uniforms, flip_prob)
 
 
 def flash_decode_attention(q, k, v, slot_pos, pos: int, window: int = 0):

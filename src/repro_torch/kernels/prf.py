@@ -228,7 +228,7 @@ def signed_pair_sum(k0: int, k1: int, lo: Sequence[int], hi: Sequence[int],
 
 
 # --- jax.random draws -----------------------------------------------------
-def _jax_tile(device) -> int:
+def jax_tile(device) -> int:
     """Counters per tile of a ``jax.random`` draw (larger on the card, where
     each torch op of the tile is one kernel launch)."""
     return TILE * 8 if torch.device(device).type == "cuda" else TILE
@@ -253,7 +253,7 @@ def _draw(key, shape, device, dtype, finish) -> torch.Tensor:
     shape = (int(shape),) if isinstance(shape, int) else tuple(shape)
     n = math.prod(shape)
     out = torch.empty((n,), dtype=dtype, device=device)
-    step = _jax_tile(out.device)
+    step = jax_tile(out.device)
     for s in range(0, n, step):
         t = min(n, s + step)
         y0, y1 = _jax_lanes(key, s, t, out.device)
@@ -275,6 +275,14 @@ def _unit(w: torch.Tensor) -> torch.Tensor:
 def uniform(key, shape, *, device=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape)``: f32 in [0, 1), bit-equal."""
     return _draw(key, shape, device, torch.float32, _unit)
+
+
+def uniform_span(key, start: int, stop: int, *, device=None) -> torch.Tensor:
+    """Elements ``[start, stop)`` of the flattened ``jax.random.uniform(key,
+    shape)`` of any shape with at least ``stop`` elements (untiled: the
+    caller keeps ``stop - start`` within :func:`jax_tile`)."""
+    y0, y1 = _jax_lanes(key, start, stop, device)
+    return _unit(y0 ^ y1)
 
 
 # jax.random.normal draws its uniforms on (nextafter(-1, 0), 1)

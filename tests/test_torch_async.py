@@ -26,6 +26,7 @@ from repro.core.fl.async_fl import AsyncServer as JServer
 from repro_torch import convert
 from repro_torch import tree as T
 from repro_torch.configs.base import FLConfig
+from repro_torch.core.fl import aggregation as agg
 from repro_torch.core.fl.async_fl import AsyncServer, staleness_weight
 
 B = 3  # session size: 3 pairwise masks, one dropout recovers 2
@@ -303,28 +304,50 @@ def test_server_opt_and_dp_match_reference(kind):
 
 @pytest.mark.parametrize("placement", ["device", "tee"])
 def test_dp_noise_draws_are_seeded_and_scaled(placement):
-    """DP noise is seeded (device noise from chunk-keyed torch generators,
-    TEE noise the reference's normal draw): a replay is bit-identical, and
-    the noised update departs from the noiseless one by about the
-    configured std."""
+    """DP noise is the reference's draw: a replay is bit-identical, the
+    noised update departs from the noiseless one by about the configured
+    std, and the engine agrees with the JAX engine on the same deltas and
+    keys.  Device noise is checked in the streamed ``tee_stream`` and the
+    batched ``tee`` engine (``normal(chunk_noise_key(rng, c), ...)``), TEE
+    noise in ``tee_stream``.
+
+    Tolerance: ``kernels.prf.normal`` equals ``jax.random.normal`` to ~2e-5
+    per unit of std, so a contribution's noise (std ``sigma * clip``) agrees
+    to ~2e-5 * sigma; where that moves a stochastic rounding across a
+    level the encode flips by one fixed-point level (1/scale ~ 5.6e-9 at
+    bits 32 and a buffer of 3).  The mean of B rows is held to 2e-5 *
+    sigma plus B levels (the largest difference seen is 6.4e-6)."""
     params, deltas = _setup(B, seed=4)
+    sigma = 2.0
+    modes = ["tee_stream", "tee"] if placement == "device" else ["tee_stream"]
 
-    def run(sigma):
-        fl = FLConfig(cohort_size=B, clip_norm=1.0, noise_multiplier=sigma,
-                      noise_placement=placement, secure_agg_bits=32)
-        srv = AsyncServer(convert.params_from_numpy(params), fl,
-                          buffer_size=B, mask_mode="tee_stream",
-                          staleness_mode="constant", device="cpu")
+    def run(sigma, mode, server=AsyncServer, conv=convert.params_from_numpy,
+            **kw):
+        cfg = dict(cohort_size=B, clip_norm=1.0, noise_multiplier=sigma,
+                   noise_placement=placement, secure_agg_bits=32)
+        fl = (FLConfig if server is AsyncServer else JFL)(**cfg)
+        srv = server(conv(params), fl, buffer_size=B, mask_mode=mode,
+                     staleness_mode="constant", **kw)
         for d in deltas:
-            srv.push(convert.params_from_numpy(d), 0)
-        return torch.cat([x.reshape(-1) for x in T.leaves(srv.params)])
+            srv.push(conv(d), 0)
+        if server is AsyncServer:
+            return torch.cat([x.reshape(-1) for x in T.leaves(srv.params)])
+        return np.concatenate([np.asarray(x).reshape(-1)
+                               for x in jax.tree.leaves(srv.params)])
 
-    base, noised = run(0.0), run(2.0)
-    assert torch.equal(noised, run(2.0))
-    # mean-delta noise std: sigma*clip/B (tee) or sigma*clip/sqrt(B) (device)
-    std = 2.0 / B if placement == "tee" else 2.0 / B ** 0.5
-    got = float((noised - base).std())
-    assert 0.5 * std < got < 1.5 * std
+    for mode in modes:
+        base, noised = run(0.0, mode, device="cpu"), run(sigma, mode,
+                                                         device="cpu")
+        assert torch.equal(noised, run(sigma, mode, device="cpu"))
+        # mean-delta noise std: sigma*clip/B (tee) or sigma*clip/sqrt(B)
+        # (device)
+        std = sigma / B if placement == "tee" else sigma / B ** 0.5
+        got = float((noised - base).std())
+        assert 0.5 * std < got < 1.5 * std
+        ref = run(sigma, mode, server=JServer, conv=_jx)
+        levels = B / agg.fixed_point_scale(FLConfig(secure_agg_bits=32), B)
+        np.testing.assert_allclose(noised.numpy(), ref, rtol=0,
+                                   atol=2e-5 * sigma + levels)
 
 
 def test_entry_point_needs_a_gpu_unless_told_cpu():

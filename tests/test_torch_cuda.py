@@ -15,7 +15,9 @@ from repro_torch import tree as T
 from repro_torch.configs import registry
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.fl import round as fl_round
+from repro_torch.core.analytics import bitagg as fa
 from repro_torch.core.fl import secure_agg as sa
+from repro_torch.kernels import bitagg as k9
 from repro_torch.kernels import dp_clip as kdp
 from repro_torch.kernels import flash_decode as kfd
 from repro_torch.kernels import prf
@@ -197,3 +199,30 @@ def test_cuda_round_matches_the_cpu_round(cuda, bits):
     assert ksa.quantize_mask.plain_calls == kdp.sq_norms.plain_calls == 0
     for a, b in zip(T.leaves(outs["cpu"]), T.leaves(outs["cuda"])):
         torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.0, 0.1, 1.0])
+def test_cuda_bit_counts_and_threshold_cdf_match_the_cpu(cuda, p):
+    """K9 bit-equal to its plain version (ragged N and F, boundary
+    uniforms, NaN values, +-inf thresholds); the fused CDF vote on the card
+    bit-equal to the same vote on the CPU (the same draws; at p = 1 the
+    debias divides by 1 - p = 0, so NaN where the reference has NaN)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    k9.reset_counts()
+    for N, F, T in ((1, 1, 1), (999, 7, 64), (4097, 3, 129)):
+        v = torch.randn(N, F, generator=g, device=cuda)
+        v[0, 0] = math.nan
+        thr = torch.sort(torch.randn(T, generator=g, device=cuda)).values
+        thr[0] = -math.inf
+        u = torch.rand(N, F, T, generator=g, device=cuda)
+        u.view(-1)[:2] = torch.tensor([p / 2.0, p])[:u.numel()]
+        assert torch.equal(k9.bit_counts(v, thr, u, p),
+                           k9.bit_counts_plain(v, thr, u, p))
+    assert k9.bit_counts.launches == 3 and k9.bit_counts.plain_calls == 0
+    v = torch.randn(3000, 5, generator=g, device=cuda) * 2.0
+    thr = fa.linspace(-3.0, 3.0, 33, device=cuda)
+    got = fa.threshold_cdf(v, thr, (1, 2), p)
+    want = fa.threshold_cdf(v.cpu(), thr.cpu(), (1, 2), p)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0,
+                               equal_nan=True)

@@ -10,7 +10,9 @@ against ``repro.kernels.ops``.
   for these unit-normal rows);
 - K6 ``quantize_mask`` and K7 ``dequantize``: bit-equal, with ragged D,
   the edge inputs (+-inf, NaN, out-of-range values that saturate the int32
-  conversion) and both of K7's multipliers.
+  conversion) and both of K7's multipliers;
+- K9 ``fa_bit_counts`` through ``ops``: bit-equal (its own tests are in
+  ``tests/test_torch_bitagg.py``).
 
 Shapes the Pallas wrappers refuse (``C % 8``, ``D % 512``) are held against
 ``ref.py`` alone; the port takes any shape.  The CUDA kernels are compared
@@ -191,5 +193,12 @@ def test_ops_match_the_reference_ops():
         torch.from_numpy(sp), 300, window=64)
     np.testing.assert_allclose(np.asarray(want), got.numpy(), rtol=1e-5,
                                atol=1e-5)
-    with pytest.raises(NotImplementedError, match="analytics"):
-        ops.fa_bit_counts(None, None, None, 0.1)
+    # K9 through ops: bit-equal (integer vote counts in f32)
+    vals = rs.randn(256, 8).astype(np.float32)
+    thr = np.linspace(-2, 2, 16).astype(np.float32)
+    uni = rs.rand(256, 8, 16).astype(np.float32)
+    np.testing.assert_array_equal(
+        np.asarray(jops.fa_bit_counts(jnp.asarray(vals), jnp.asarray(thr),
+                                      jnp.asarray(uni), 0.1)),
+        ops.fa_bit_counts(torch.from_numpy(vals), torch.from_numpy(thr),
+                          torch.from_numpy(uni), 0.1).numpy())
