@@ -11,6 +11,13 @@ Phases (each prints its seconds):
      circulant / table mask graphs, ``slot_offset`` shards, rows beyond the
      session, nonzero uniform offsets, several fixed-point scales, every
      packed width 1..32 in both directions, and the main path's own shapes;
+     K1 and K2's PRF lane, which walk element pairs (one Threefry per
+     counter, both words used), at odd and even n (1, 2, 3, ...), odd and
+     even uniform offsets, unaligned x, complete graphs of 3, 8, 10 and
+     4000 slots, rings up to 4000 neighbours and a table, and K2 shards
+     whose rows cross num_slots; and the rebuilt ``jax.random`` draws on the
+     card bit-equal to the CPU's (``normal`` on 2^24 draws, ``randint``, the
+     dense init);
   2. the main path: the buffered-async aggregation server (``AsyncServer``)
      on qwen2-1.5b's published widths, depth cut from 28 to 2 layers
      (326,970,880 parameters, 1.31 GB f32 per delta), ``buffer_size=8``,
@@ -36,6 +43,8 @@ Phases (each prints its seconds):
      against a teacher-forced ``apply`` over prompt + generated tokens;
      prefill and decode ms and tok/s; a ``torch.profiler`` breakdown of 4
      decode steps of the plain run (device-busy ms, idle share, kernels);
+     the init's time (the reference's key tree and normal draws), a second
+     init held bit-equal to the served weights;
   2d. training: ``python -m repro_torch.launch.train``'s ``main`` at
      qwen2-1.5b's published width AND depth (28 layers, cohort 4, sequence
      64, 2 rounds, secure-agg bits 32, TEE noise 0.3; every printed loss,
@@ -66,7 +75,10 @@ Phases (each prints its seconds):
      device tile of each CDF vote (2 in the example, 1 in the pipeline, 16
      in the fleet query);
   4. the card's name and power limit, each kernel's time at the main path's
-     largest shape beside its bound and its plain version's time; K10's
+     largest shape beside its bound (bytes over 3.35 TB/s, float operations
+     over 67 T/s, integer instructions over the issue rate SMs x 128 x the
+     maximum SM clock) and its plain version's time; K2's PRF lane (its
+     launches counted apart) beside its unmasked lane; K10's
      device time (calls queued behind a sleep kernel) at the serve shape
      and at the decode_32k shape, beside one
      ``scaled_dot_product_attention`` call on the same inputs; K9 at the
@@ -102,15 +114,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit).  The
-# kernels' integer work is counted against the 67 T/s 32-bit CUDA-core rate
-# — the sheet gives no int32 rate; the card issues int32 at no more than
-# that, so the bound stays a lower bound.
+# H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): float
+# work (an FMA counted as two operations) against the 67 T/s f32 rate.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
-# integer operations of one Threefry-2x32-13 evaluation: 2 initial key adds,
-# 13 rounds of (add, rotate, xor), 3 key injections of 3 adds
-THREEFRY_OPS = 2 + 13 * 3 + 3 * 3
+# Integer (and other non-FMA) instructions against the issue rate: each SM
+# issues at most 4 warp-instructions, 128 lane-operations, per clock, so
+# SMs x 128 x the maximum SM clock (nvidia-smi clocks.max.sm; ~33.4 T/s at
+# 132 SMs and 1.98 GHz).  Set by main() from the card.
+INT_OPS_PER_S = 132 * 128 * 1.98e9
+# integer instructions of one Threefry-2x32-13 evaluation, counted in the
+# SASS of K1's main loop for the 8-slot graph (tools/threefry_sass.py, H100
+# build): 16 evaluations an iteration in 752 IMAD/IADD3/VIADD/LOP3/SHF, 28
+# of them the mask's sign multiply-adds, so (752 - 28) / 16 = 45.25: a
+# round is an add, a funnel-shift rotate and an xor, plus the x1 key
+# injections and some adds the compiler did not fold
+THREEFRY_OPS = 45
 
 DEVICE = "cuda"
 NUM_LAYERS = 2
@@ -294,9 +313,118 @@ def kernel_parity(torch) -> None:
             n += 1
     log(f"  pack_residues/unpack_residues: {n} cases bit-equal to the plain "
         "versions and round-tripped")
+    paired_prf_parity(torch, g)
     flash_decode_parity(torch, g)
     round_kernel_parity(torch, g)
     bitagg_parity(torch, g)
+    jax_random_parity(torch)
+
+
+def paired_prf_parity(torch, g) -> None:
+    """K1 and K2's PRF lane walk element pairs (one Threefry per counter,
+    both words used): bit-equal at odd and even n (1, 2, 3, ...), odd and
+    even uniform offsets, x 4 bytes off 16-byte alignment, the 8-slot
+    complete graph (keys in registers), other complete graphs, rings and
+    a table up to MAX_KERNEL_NEIGHBORS neighbours (keys in shared memory;
+    K2 staging all rows or row by row), and K2 shards whose rows cross
+    num_slots."""
+    from repro_torch.core.fl import secure_agg as sa
+    from repro_torch.kernels import prf
+    from repro_torch.kernels import secure_agg as ksa
+    big = ksa.MAX_KERNEL_NEIGHBORS
+    perm = [3, 0, 9, 1, 4, 8, 2, 7, 6, 5]
+    meta = ksa.SessionMeta
+    sessions = {
+        "complete8": meta(key_words=(0x1234, 0x5A5E), num_slots=8),
+        "complete3": meta(key_words=(5, 6), num_slots=3),
+        "complete10": meta(key_words=(7, 8), num_slots=10),
+        "ring10": meta(key_words=(7, 9), num_slots=10, degree=4),
+        "table10": meta(key_words=(11, 13), num_slots=10, degree=4,
+                        neighbors=sa.neighbor_table(10, 4, perm,
+                                                    device="cuda")),
+        f"complete{big}": meta(key_words=(3, 1), num_slots=big),
+        f"ring{big + 2}x{big}": meta(key_words=(4, 1), num_slots=big + 2,
+                                     degree=big),
+    }
+    scale = 67108862.75 / 4.0
+    n1 = n2 = 0
+    for name, s in sessions.items():
+        small = s.num_slots <= 10
+        sizes = (1, 2, 3, 4, 5, 7, 8, 1000, 4097) if small else \
+            (1, 2, 3, 5, 1001)
+        for n in sizes:
+            x = torch.randn(n + 1, generator=g, device="cuda") * 1e-3
+            for xs in (x[:n], x[1:]):
+                for slot in sorted({0, s.num_slots // 2, s.num_slots - 1}):
+                    for u_off in (0, 1, 2, 3, 12345):
+                        got = ksa.quantize_mask_prf(xs, scale, slot, (5, 6),
+                                                    s, u_offset=u_off)
+                        want = ksa.quantize_mask_prf_plain(
+                            xs, scale, slot, (5, 6), s, u_offset=u_off)
+                        torch.cuda.synchronize()
+                        check(torch.equal(got, want),
+                              f"quantize_mask_prf != plain ({name}, n={n}, "
+                              f"slot={slot}, u_offset={u_off}, "
+                              f"aligned={xs.data_ptr() % 16 == 0})")
+                        n1 += 1
+        shapes = ((1, 1), (8, 2), (8, 3), (5, 1000), (8, 4097), (3, 4096)) \
+            if small else ((2, 5), (3, 1001))
+        for C, D in shapes:
+            x = torch.randn(C, D, generator=g, device="cuda") * 1e-3
+            w = torch.rand(C, generator=g, device="cuda")
+            u = prf.uniform_block(3, 4, C * D, device="cuda").reshape(C, D)
+            for off in sorted({0, 3, s.num_slots - 2, s.num_slots - 1}):
+                kw = {"session": s._replace(slot_offset=off)}
+                got = ksa.weighted_quantize_accum(x, w, u, scale, **kw)
+                want = ksa.weighted_quantize_accum_plain(x, w, u, scale, **kw)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"weighted_quantize_accum PRF lane != plain ({name}, "
+                      f"C={C}, D={D}, slot_offset={off})")
+                n2 += 1
+    log(f"  paired PRF kernels: quantize_mask_prf {n1} and the "
+        f"weighted_quantize_accum PRF lane {n2} cases bit-equal to the plain "
+        f"versions (graphs {', '.join(sessions)})")
+
+
+def jax_random_parity(torch) -> None:
+    """The rebuilt jax.random draws on the card equal the CPU's bit for bit
+    (the CPU's equal jax.random's, tests/test_torch_jrandom.py): normal on
+    2^24 draws, randint at the serve prompt's vocabulary, and the dense
+    family's init at qwen2-reduced."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import prf
+    from repro_torch.models.model import build_model
+    n = 1 << 24
+    for seed in (0, 1):
+        key = prf.fold_in(prf.PRNGKey(seed), 11)
+        t0 = time.perf_counter()
+        got = prf.normal(key, (n,), device="cuda")
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = prf.normal(key, (n,))
+        cpu_s = time.perf_counter() - t0
+        check(torch.equal(got.cpu(), want),
+              f"normal on the card != on the CPU (seed {seed}): "
+              f"{int((got.cpu() != want).sum())} of {n} differ")
+        log(f"  normal: {n:,} draws bit-equal on the card and the CPU (seed "
+            f"{seed}; card {gpu_s:.2f} s, CPU {cpu_s:.2f} s)")
+        del got, want
+    key = prf.PRNGKey(3)
+    check(torch.equal(prf.randint(key, (8, 2048), 0, 151_936,
+                                  device="cuda").cpu(),
+                      prf.randint(key, (8, 2048), 0, 151_936)),
+          "randint on the card != on the CPU")
+    cfg = registry.get_config("qwen2-1.5b", reduced=True)
+    got = build_model(cfg, device="cuda").init(prf.PRNGKey(2))
+    want = build_model(cfg, device="cpu").init(prf.PRNGKey(2))
+    from repro_torch import tree as T
+    check(all(torch.equal(b.cpu(), a) for a, b in zip(T.leaves(want),
+                                                       T.leaves(got))),
+          "the dense init on the card != on the CPU")
+    log("  randint (8 x 2048 of 151,936) and the qwen2-reduced init: "
+        "bit-equal on the card and the CPU")
 
 
 def bitagg_parity(torch, g) -> None:
@@ -472,8 +600,7 @@ class MainPath:
         self.torch = torch
         self.seed = seed
         self.cfg = cfg.with_overrides(num_layers=NUM_LAYERS)
-        g = torch.Generator(device=DEVICE).manual_seed(seed)
-        self.params = init_params(self.cfg, g, device=DEVICE)
+        self.params = init_params(self.cfg, seed=seed, device=DEVICE)
         self.timings = {}
         self.wire = {}
         self.lanes = {}
@@ -718,6 +845,7 @@ def serve_path(torch, seed: int, counts: dict, smi: str) -> None:
         decode_ms = gen.decode_s * 1e3 / SERVE_STEPS
         if name == "full":
             decode_profile(torch, session, smi)
+            init_cost(torch, session, seed, n, smi)
         log(f"  serve {name}: prefill {gen.prefill_s * 1e3:.1f} ms "
             f"({SERVE_B * SERVE_S / gen.prefill_s:.0f} tok/s); decode "
             f"{decode_ms:.2f} ms/step ({SERVE_B * 1e3 / decode_ms:.0f} "
@@ -726,6 +854,26 @@ def serve_path(torch, seed: int, counts: dict, smi: str) -> None:
             f"{SERVE_STEPS + 1} positions; {smi}")
         del session, gen, got, want, full
         torch.cuda.empty_cache()
+
+
+def init_cost(torch, session: dict, seed: int, n: int, smi: str) -> None:
+    """The reference's init rebuilt (``n`` ``jax.random.normal`` draws
+    through the torch Threefry-20 stream and XLA's ``erf_inv``), timed once
+    more and held bit-equal to the weights just served."""
+    from repro_torch import tree as T
+    from repro_torch.kernels import prf
+    sync(torch)
+    t0 = time.perf_counter()
+    again = session["model"].init(prf.PRNGKey(seed))
+    sync(torch)
+    init_s = time.perf_counter() - t0
+    check(all(torch.equal(a, b) for a, b in zip(
+        T.leaves(again), T.leaves(session["params"]))),
+          "a second init differs from the served weights")
+    log(f"  init (the reference's key tree, {n:,} normal draws): "
+        f"{init_s:.2f} s, bit-equal to the served weights; {smi}")
+    del again
+    empty_cache(torch)
 
 
 def decode_profile(torch, session: dict, smi: str, steps: int = 4) -> None:
@@ -865,7 +1013,7 @@ def train_path(torch, seed: int, counts: dict, smi: str) -> None:
     cfg = registry.get_config(TRAIN_ARCH, reduced=TRAIN_REDUCED)
     cfg = cfg.with_overrides(max_seq_len=max(TRAIN_SEQ, 64))
     model = build_model(cfg, device=DEVICE)
-    params = model.init(torch.Generator(device=DEVICE).manual_seed(seed))
+    params = model.init(prf.PRNGKey(seed))
     batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in fl_token_batch(
         TRAIN_COHORT, TRAIN_SEQ, cfg.vocab_size, seed=seed + 1).items()}
     rng = prf.fold_in(prf.PRNGKey(seed), 10_000)
@@ -909,7 +1057,7 @@ def train_path(torch, seed: int, counts: dict, smi: str) -> None:
     torch.use_deterministic_algorithms(True, warn_only=True)
     cfg2 = cfg.with_overrides(num_layers=MASKED_LAYERS)
     model = build_model(cfg2, device=DEVICE)
-    params = model.init(torch.Generator(device=DEVICE).manual_seed(seed))
+    params = model.init(prf.PRNGKey(seed))
     outs = {}
     for masked in (True, False):
         fl = FLConfig(cohort_size=TRAIN_COHORT, local_lr=0.5, clip_norm=1.0,
@@ -1192,13 +1340,17 @@ def kernel_times(torch, counts) -> list:
     check(torch.equal(got, want), "quantize_mask_prf != plain at full width")
     del want
     ms = _cuda_ms(torch, run, 5)
-    evals = (1 + nbrs) * D / 2  # uniform + mask words, 2 words / Threefry
-    ops = evals * THREEFRY_OPS + D * (5 + nbrs)
+    # uniform + mask words, 2 words a Threefry; per element the scale
+    # multiply, floor, subtract, compare, select, add, convert (7) and a
+    # multiply-add per mask word
+    evals = (1 + nbrs) * D / 2
+    ops = evals * THREEFRY_OPS + D * (7 + nbrs)
     nbytes = D * 4 + D * 4
     out.append(_entry("quantize_mask_prf",
                       "src/repro_torch/kernels/csrc/quantize_mask_prf.cu",
                       "src/repro/kernels/secure_agg.py:203",
-                      counts["quantize_mask_prf"], ms, plain_ms, ops, nbytes))
+                      counts["quantize_mask_prf"], ms, plain_ms, ops, nbytes,
+                      integer=True))
     del x, got
     torch.cuda.empty_cache()
 
@@ -1218,16 +1370,24 @@ def kernel_times(torch, counts) -> list:
     ms = _cuda_ms(torch, run, 3)
     lane_ms = _cuda_ms(
         torch, lambda: ksa.weighted_quantize_accum(x, w, u, scale), 3)
+    # every row's mask streams (the lane generates them all, though a full
+    # session's masks cancel), 2 words a Threefry; per (row, element) the
+    # two multiplies, floor, subtract, compare, select, add, convert, the
+    # accumulate (9) and a multiply-add per mask word
     evals = BUFFER * nbrs * D / 2
-    ops = evals * THREEFRY_OPS + BUFFER * D * (5 + nbrs)
+    ops = evals * THREEFRY_OPS + BUFFER * D * (9 + nbrs)
     nbytes = 2 * BUFFER * D * 4 + BUFFER * 4 + D * 4
     k2 = _entry("weighted_quantize_accum",
                 "src/repro_torch/kernels/csrc/weighted_quantize_accum.cu",
                 "src/repro/kernels/secure_agg.py:417",
-                counts["weighted_quantize_accum"], ms, plain_ms, ops, nbytes)
+                counts[ksa.PRF_LANE], ms, plain_ms, ops, nbytes,
+                integer=True)
     # the unmasked lane (batched off): the same bytes, no PRF
-    lane = _entry("", "", "", 0, lane_ms, 0.0, BUFFER * D * 5, nbytes)
-    k2.update(unmasked_lane_ms=lane_ms,
+    lane = _entry("", "", "", 0, lane_ms, 0.0, BUFFER * D * 9, nbytes,
+                  integer=True)
+    k2.update(lane="PRF session masks (tee); launches are this lane's",
+              unmasked_lane_launches=counts["weighted_quantize_accum"],
+              unmasked_lane_ms=lane_ms,
               unmasked_lane_bound_ms=lane["bound_ms"],
               unmasked_lane_bound_by=lane["bound_by"])
     log(f"  weighted_quantize_accum unmasked lane ({BUFFER}x{D}): "
@@ -1261,7 +1421,7 @@ def kernel_times(torch, counts) -> list:
                       "src/repro_torch/kernels/csrc/rotate_quantize_prf.cu",
                       "src/repro/kernels/secure_agg.py:300",
                       counts["rotate_quantize_prf"], ms, plain_ms, ops,
-                      nbytes))
+                      nbytes, integer=True))
     del x, got
     torch.cuda.empty_cache()
 
@@ -1433,7 +1593,7 @@ def bitagg_time(torch, launches, smi: str) -> dict:
     e = _entry("bit_counts", "src/repro_torch/kernels/csrc/bitagg.cu",
                "src/repro/kernels/bitagg.py:39", launches["bit_counts"], ms,
                plain_ms, K9_OPS * N * F * T,
-               4 * (N * F * T + N * F + T + F * T))
+               4 * (N * F * T + N * F + T + F * T), integer=True)
     log(f"  bit_counts ({N}x{F}x{T}): {ms:.3f} ms (bound {e['bound_ms']:.3f} "
         f"ms by {e['bound_by']}; plain {plain_ms:.1f} ms; library none); "
         f"{smi}")
@@ -1443,9 +1603,12 @@ def bitagg_time(torch, launches, smi: str) -> dict:
 
 
 def _entry(name, source, replaces, launches, ms, plain_ms, ops, nbytes, *,
-           max_abs_err=0, library_ms=None):
+           max_abs_err=0, library_ms=None, integer=False):
+    """A kernel's line; ``ops`` are float operations (an FMA two) against
+    the f32 rate, or with ``integer`` instructions against the issue
+    rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / OPS_PER_S * 1e3
+    t_ops = ops / (INT_OPS_PER_S if integer else OPS_PER_S) * 1e3
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
@@ -1497,6 +1660,15 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     smi = smi[0] if smi else "nvidia-smi: no output"
+    global INT_OPS_PER_S
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    INT_OPS_PER_S = sms * 128 * float(clk[0]) * 1e6
+    log(f"integer issue rate: {sms} SMs x 128 lane-ops/clk x {clk[0]} MHz "
+        f"= {INT_OPS_PER_S / 1e12:.2f} T/s")
 
     with Phase("phase 1: build + kernel parity"):
         build_kernels()
@@ -1526,15 +1698,18 @@ def main() -> int:
         analytics_path(torch, args.seed, counts, smi)
 
     with Phase("phase 3: kernels on the main path"):
+        from repro_torch.kernels import secure_agg as ksa
         # launches per path: one per chunk of every push (or flush) that
         # runs the kernel; 14 pushes and 2 flushes per run
         per_run = EXPECT_CHUNKS * (BUFFER + 6)
         flushes = EXPECT_CHUNKS * 2
         want = {
-            # bits 32/16 x (client + tee_stream); batched tee + off x 2 bits;
-            # the 19-bit client wire packs and unpacks every chunk
+            # bits 32/16 x (client + tee_stream); batched off (unmasked
+            # lane) and tee (PRF lane) x 2 bits; the 19-bit client wire
+            # packs and unpacks every chunk
             "uncompressed": {"quantize_mask_prf": 4 * per_run,
-                             "weighted_quantize_accum": 4 * flushes,
+                             "weighted_quantize_accum": 2 * flushes,
+                             ksa.PRF_LANE: 2 * flushes,
                              "rotate_quantize_prf": 0,
                              "pack_residues": per_run,
                              "unpack_residues": per_run},
@@ -1542,7 +1717,7 @@ def main() -> int:
             # runs (sketch, subsample) pack; the enclave run is an
             # uncompressed tee_stream push whose 8-bit wire packs
             "compressed": {"quantize_mask_prf": per_run,
-                           "weighted_quantize_accum": 0,
+                           "weighted_quantize_accum": 0, ksa.PRF_LANE: 0,
                            "rotate_quantize_prf": 6 * per_run,
                            "pack_residues": 3 * per_run,
                            "unpack_residues": 3 * per_run},

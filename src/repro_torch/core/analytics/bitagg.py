@@ -59,26 +59,8 @@ def linspace(lo: float, hi: float, n: int, *, device=None) -> torch.Tensor:
     one = _f32(1.0, "cpu")
     c = one / _f32(float(n - 1), "cpu")
     i = torch.arange(n - 1, dtype=F32)
-    out = _fma_f32(i, (hi_t * c).expand_as(i), lo_t * (one - i * c))
+    out = prf.fma_f32(i, (hi_t * c).expand_as(i), lo_t * (one - i * c))
     return torch.cat([out, hi_t.reshape(1)]).to(device)
-
-
-def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
-    """``a * b + c`` rounded once to f32 (f32 CPU tensors).  The product is
-    exact in f64; the f64 sum's rounding error ``e`` (TwoSum) decides the
-    f32 rounding only where the f64 sum sits exactly between two f32s."""
-    p, c64 = a.double() * b.double(), c.double()
-    s = p + c64
-    bb = s - p
-    e = (p - (s - bb)) + (c64 - bb)
-    r = s.to(F32)
-    toward = torch.where(s > r.double(), torch.tensor(float("inf")),
-                         torch.tensor(float("-inf"))).to(F32)
-    other = torch.nextafter(r, toward)
-    tie = (s != r.double()) & (s == (r.double() + other.double()) / 2)
-    hi, lo = torch.maximum(r, other), torch.minimum(r, other)
-    fixed = torch.where(e > 0, hi, torch.where(e < 0, lo, r))
-    return torch.where(tie, fixed, r)
 
 
 def encode_mean_bits(values: torch.Tensor, lo: float, hi: float, rng,

@@ -27,9 +27,9 @@ package.
 
 Bit-exactness with the JAX package holds for every integer and every float
 op here except two reductions: the whole-model squared norm is summed in
-another order, and (with noise on) the Gaussian draws are
-``jax.random.normal`` rebuilt by ``kernels.prf.normal`` (to ~2e-5 of the
-std).  While no row is clipped and the noise is off the clip scale is
+another order, and (with noise on) XLA adds the Gaussian draws
+(``jax.random.normal``, rebuilt bit for bit by ``kernels.prf.normal``) as
+one FMA where the port rounds the product first.  While no row is clipped and the noise is off the clip scale is
 exactly 1.0 and the engines agree bit for bit.  Scalar divisions use 0-dim
 tensors on the data's device (a CUDA division by a Python scalar is a
 multiply by its reciprocal), except where the reference divides by a
@@ -574,7 +574,7 @@ def plan_buffer_noise_and_uniforms(rng, B: int, spec: AggregationSpec,
 
     Uniforms: the per-row counter streams at each chunk's global offset
     (bit-identical to the JAX draw).  Device noise: the reference's
-    ``normal(chunk_noise_key(rng, c), (B, size))`` (to ~2e-5); padded tails
+    ``normal(chunk_noise_key(rng, c), (B, size))`` (bit-equal); padded tails
     get zero noise.
     """
     noise = None
@@ -637,8 +637,8 @@ def encode_and_sum_rows(buf: torch.Tensor, weights: torch.Tensor, uniforms,
 def buffer_noise_and_uniforms(rng, B: int, D: int, spec: AggregationSpec,
                               device=None):
     """The flat batched aggregation's draws: ``jax.random.normal(
-    fold_in(rng, 1), (B, D))`` device noise (to ~2e-5) and the per-row
-    TAG_UNIFORM streams (bit-equal)."""
+    fold_in(rng, 1), (B, D))`` device noise and the per-row TAG_UNIFORM
+    streams (both bit-equal)."""
     noise = (prf.normal(prf.fold_in(rng, 1), (B, D), device=device)
              if spec.dev_noise > 0.0 else None)
     uniforms = None

@@ -3,7 +3,8 @@
 Port of ``repro.core.fl.dp``.  Clipping is arithmetic and matches the JAX
 function up to the order of the float sum in the norm.  ``add_noise`` draws
 the reference's own noise: ``jax.random.split`` + ``jax.random.normal``
-rebuilt by ``kernels.prf`` (equal to ~2e-5 per unit of std).
+rebuilt by ``kernels.prf``, bit for bit (the jitted reference contracts
+the add into an FMA, so a noised value may differ in its last bit).
 """
 from __future__ import annotations
 

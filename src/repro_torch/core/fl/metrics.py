@@ -5,7 +5,7 @@ Devices compute sufficient statistics (confusion counts, score
 histograms); only noised aggregates leave the trusted boundary, and the
 server derives precision/recall/accuracy/ROC-AUC and the score-skew
 diagnostic from them.  The count noise is ``jax.random.normal`` rebuilt by
-``kernels.prf.normal`` (equal to the reference's draw to ~2e-5).
+``kernels.prf.normal`` (the reference's draw, bit for bit).
 """
 from __future__ import annotations
 

@@ -33,8 +33,9 @@ device picks the implementation:
 With noise off and no client clipped, the aggregation half (privatize,
 encode, mask, sum, decode) is bit-equal to the jitted reference given the
 same client deltas; local SGD agrees with JAX's gradients to ~1e-6.  Device
-and TEE noise are the reference's ``jax.random.normal`` draws, rebuilt to
-~2e-5 per unit of std (``kernels.prf.normal``).  Each round is a
+and TEE noise are the reference's ``jax.random.normal`` draws, rebuilt bit
+for bit (``kernels.prf.normal``); XLA adds them as one FMA, the port
+rounds the product first.  Each round is a
 ``round.execute`` span with ``round.local_sgd``, ``round.privatize``,
 ``round.encode`` (and within it ``round.uniforms``), ``round.sum`` and
 ``round.decode`` spans inside (fenced when the registry fences).

@@ -6,8 +6,12 @@
 //
 // Threefry-2x32 at 13 rounds with the exact rotation and key-injection
 // schedule of the reference: injections after every 4th round only.  All
-// arithmetic is on uint32_t, where wraparound is defined.
+// arithmetic is on uint32_t, where wraparound is defined.  One evaluation
+// yields two stream words, those of elements 2c and 2c + 1: the kernels
+// walk element pairs (stream_pair_at) and use both.
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -58,6 +62,16 @@ __device__ __forceinline__ uint32_t stream_at(uint32_t pk0, uint32_t pk1,
   return (e & 1u) ? x1 : x0;
 }
 
+// Both stream words of counter c: x for element 2c, y for element 2c + 1.
+// One Threefry evaluation serves the two elements (stream_at evaluates it
+// once per element).
+__device__ __forceinline__ uint2 stream_pair_at(uint32_t pk0, uint32_t pk1,
+                                                uint32_t c, uint32_t tag) {
+  uint32_t x0 = c, x1 = tag;
+  threefry2x32(pk0, pk1, x0, x1);
+  return make_uint2(x0, x1);
+}
+
 // Top 24 bits scaled by 2^-24: an exact f32 uniform in [0, 1).
 __device__ __forceinline__ float bits_to_uniform(uint32_t w) {
   return __fmul_rn(__uint2float_rn(w >> 8), 5.9604644775390625e-08f);
@@ -85,37 +99,81 @@ __device__ __forceinline__ int neighbor_at(int slot, int j, int num_slots,
   return (slot + off + num_slots) % num_slots;
 }
 
-// Stage the pair keys and signs of `slot`'s neighbours in shared memory:
-// pk0[j], pk1[j], sign[j] (+1 when slot < d, -1 when slot > d, 0 on the
-// diagonal).  Call from every thread of the block, then __syncthreads().
-__device__ __forceinline__ void stage_pair_keys(
+// Stage the LIVE mask neighbours of `slot` in shared memory: for each
+// neighbour d != slot, its pair key (pk0, pk1) and the sign of its stream
+// in the slot's mask as a multiplier, sgn = +1 when slot < d and
+// 0xFFFFFFFF (-1 mod 2^32) when slot > d.  The diagonal of a complete graph
+// (sign 0) is dropped, so the element loop has no branch.  Entries go to
+// the positions an atomicAdd on *live hands out (the caller zeroes it);
+// their order does not matter, the mask being a sum mod 2^32.  Threads
+// `first`, `first + step`, ... of the block take neighbours j = 0, 1, ...;
+// the caller synchronises before reading.
+__device__ __forceinline__ void stage_live_keys(
     uint32_t k0, uint32_t k1, int slot, int count, int num_slots, int degree,
     const int32_t* table, int table_width, uint32_t* pk0, uint32_t* pk1,
-    int32_t* sign) {
-  for (int j = threadIdx.x; j < count; j += blockDim.x) {
+    uint32_t* sgn, int* live, int first, int step) {
+  for (int j = first; j < count; j += step) {
     const int d = neighbor_at(slot, j, num_slots, degree, table, table_width);
+    if (d == slot) continue;
     uint32_t x0 = static_cast<uint32_t>(min(slot, d));
     uint32_t x1 = static_cast<uint32_t>(max(slot, d));
     threefry2x32(k0, k1, x0, x1);
-    pk0[j] = x0;
-    pk1[j] = x1;
-    sign[j] = (d == slot) ? 0 : ((slot < d) ? 1 : -1);
+    const int p = atomicAdd(live, 1);
+    pk0[p] = x0;
+    pk1[p] = x1;
+    sgn[p] = (slot < d) ? 1u : 0xFFFFFFFFu;
   }
 }
 
-// Signed sum of the staged pair streams at element position e (mod 2^32).
-__device__ __forceinline__ uint32_t mask_at(uint32_t e, int count,
-                                            const uint32_t* pk0,
-                                            const uint32_t* pk1,
-                                            const int32_t* sign) {
-  uint32_t m = 0u;
-  for (int j = 0; j < count; ++j) {
-    const int32_t s = sign[j];
-    if (s == 0) continue;
-    const uint32_t w = stream_at(pk0[j], pk1[j], e, kTagMask);
-    m += (s > 0) ? w : (0u - w);
+// The masks of the four elements 4g .. 4g + 3 (pair counters c = 2g and
+// c + 1): m[k] += sgn * word, one Threefry per counter and neighbour, both
+// of its words used.  NB > 0: NB staged neighbours whose keys the caller
+// holds in registers; the loop is unrolled.
+template <int NB>
+__device__ __forceinline__ void mask_quad_regs(uint32_t c, const uint32_t* k0,
+                                               const uint32_t* k1,
+                                               const uint32_t* s,
+                                               uint32_t* m) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const uint2 a = stream_pair_at(k0[j], k1[j], c, kTagMask);
+    const uint2 b = stream_pair_at(k0[j], k1[j], c + 1u, kTagMask);
+    m[0] += a.x * s[j];
+    m[1] += a.y * s[j];
+    m[2] += b.x * s[j];
+    m[3] += b.y * s[j];
   }
-  return m;
+}
+
+// The same over `live` neighbours read from shared memory (any count).
+__device__ __forceinline__ void mask_quad_smem(uint32_t c, int live,
+                                               const uint32_t* k0,
+                                               const uint32_t* k1,
+                                               const uint32_t* s,
+                                               uint32_t* m) {
+  for (int j = 0; j < live; ++j) {
+    const uint2 a = stream_pair_at(k0[j], k1[j], c, kTagMask);
+    const uint2 b = stream_pair_at(k0[j], k1[j], c + 1u, kTagMask);
+    m[0] += a.x * s[j];
+    m[1] += a.y * s[j];
+    m[2] += b.x * s[j];
+    m[3] += b.y * s[j];
+  }
+}
+
+// The kernels' launch size: as many blocks of `threads` as the card keeps
+// resident at once (occupancy), or fewer when there is less work.
+template <typename Kernel>
+inline unsigned occupancy_grid(Kernel kernel, int threads, size_t smem,
+                               int64_t blocks_needed) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                smem);
+  int64_t blocks = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  if (blocks_needed < blocks) blocks = blocks_needed;
+  return static_cast<unsigned>(blocks > 0 ? blocks : 1);
 }
 
 // Stochastic fixed-point rounding of xf with uniform u: floor(xf) + [u < frac]

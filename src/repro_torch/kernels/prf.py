@@ -23,18 +23,18 @@ time): a full-width model chunk has hundreds of millions of positions and an
 untiled ``int64`` stream of that size would need tens of GB.  The streams are
 counter-based and the sums are mod 2^32, so tiling is bit-identical.
 
-``split``, ``random_bits``, ``uniform``, ``normal`` and ``permutation``
-rebuild JAX's own draws (the threefry implementation with
-``jax_threefry_partitionable``, JAX's default): element ``i`` of a draw of
-shape ``s`` is the 20-round Threefry of the counter ``(i >> 32, i & M32)``
-under the key.  ``split``, ``random_bits``, ``uniform`` and
-``permutation`` are bit-equal to ``jax.random``; ``normal`` is
-``sqrt(2) * erfinv`` of the same uniforms, equal to JAX's to ~2e-5 (the two
-libraries' ``erfinv`` differ in the last bits).
+``split``, ``random_bits``, ``uniform``, ``normal``, ``randint`` and
+``permutation`` rebuild JAX's own draws (the threefry implementation with
+``jax_threefry_partitionable``, JAX's default), bit for bit: element ``i`` of
+a draw of shape ``s`` is the 20-round Threefry of the counter
+``(i >> 32, i & M32)`` under the key.  ``normal`` rebuilds XLA's f32
+``erf_inv`` and ``log1p`` (and XLA CPU's ``log``) op by op, with their FMAs,
+in f32 torch ops that give the same bits on the CPU and the card.
 """
 from __future__ import annotations
 
 import math
+import struct
 from typing import Sequence, Tuple
 
 import torch
@@ -285,24 +285,181 @@ def uniform_span(key, start: int, stop: int, *, device=None) -> torch.Tensor:
     return _unit(y0 ^ y1)
 
 
+def _r32(v: float) -> float:
+    """``v`` rounded to the nearest f32, as a Python float."""
+    return struct.unpack("f", struct.pack("f", v))[0]
+
+
 # jax.random.normal draws its uniforms on (nextafter(-1, 0), 1)
 _NORMAL_LO = -0.99999994039535522461  # f32 nextafter(-1, 0)
+_SQRT2_F32 = 1.41421354  # f32(sqrt(2)), XLA's constant
+# XLA's f32 log1p: the Cephes rational form below |x| < sqrt(2) - 1 (all
+# constants are XLA's, rounded to f32)
+_LOG1P_SMALL = 0.41421356237309504880
+_LOG1P_P = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+            6.5787325942061044846969, 2.9911919328553073277375e1,
+            6.0949667980987787057556e1, 5.7112963590585538103336e1,
+            2.0039553499201281259648e1)
+_LOG1P_Q = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+            2.2176239823732856465394e2, 3.0909872225312059774938e2,
+            2.1642788614495947685003e2, 6.0118660497603843919306e1)
+# XLA CPU's f32 log (the Cephes logf polynomial in Eigen's form)
+_LOG_SQRTHF = 0.707106781186547524
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+# XLA's f32 erf_inv (Giles): Horner coefficients, highest degree first,
+# for w < 5 and w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+_LOG1P_SMALL, _LOG_SQRTHF, _LOG_Q1, _LOG_Q2 = (
+    _r32(v) for v in (_LOG1P_SMALL, _LOG_SQRTHF, _LOG_Q1, _LOG_Q2))
+_LOG1P_P, _LOG1P_Q, _LOG_P, _ERFINV_LT5, _ERFINV_GE5 = (
+    tuple(_r32(v) for v in t)
+    for t in (_LOG1P_P, _LOG1P_Q, _LOG_P, _ERFINV_LT5, _ERFINV_GE5))
+
+
+def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to f32 (a true FMA, as XLA's CPU code and
+    CUDA's ``__fmaf_rn`` compute it) from f32 operands.
+
+    ``b`` and ``c`` may be tensors or Python floats holding f32 values.  The
+    product is exact in f64 and the f64 sum rounds once; rounding that sum
+    to f32 is a second rounding, which differs from the FMA's only where the
+    f64 sum sits exactly halfway between two f32s.  There the sum's exact
+    error (TwoSum) picks the side.  Results must lie in f32's normal range.
+    """
+    def f64(v):
+        return v.double() if isinstance(v, torch.Tensor) else v
+    p = a.double() * f64(b)
+    s = p + f64(c)
+    r = s.float()
+    tie = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    if not bool(tie.any()):
+        return r
+    idx = tie.nonzero(as_tuple=True)
+    ps, ss = p[idx], s[idx]
+    cs = c.double().expand_as(s)[idx] if isinstance(c, torch.Tensor) else c
+    bb = ss - ps
+    e = (ps - (ss - bb)) + (cs - bb)
+    rs = r[idx]
+    up = torch.nextafter(rs, torch.full_like(rs, math.inf))
+    down = torch.nextafter(rs, torch.full_like(rs, -math.inf))
+    lo = torch.where(rs.double() < ss, rs, down)
+    hi = torch.where(rs.double() > ss, rs, up)
+    r[idx] = torch.where(e > 0, hi, torch.where(e < 0, lo, rs))
+    return r
+
+
+def _div_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 quotient: the f64 quotient of two f32s,
+    rounded again to f32 (f64 carries more than 2 * 24 + 2 bits, so the
+    second rounding cannot move it)."""
+    return (a.double() / b.double()).float()
+
+
+def _horner(x: torch.Tensor, coeffs) -> torch.Tensor:
+    """Horner's rule with FMA steps from the highest-degree coefficient
+    (f32 Python floats)."""
+    h = torch.full_like(x, coeffs[0])
+    for c in coeffs[1:]:
+        h = fma_f32(h, x, c)
+    return h
+
+
+def log_f32(v: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's f32 ``log`` for finite ``v > 0`` (f32): Cephes' ``logf``
+    polynomial with Eigen's exponent split, its multiply-adds contracted
+    into FMAs exactly where XLA's compiled code has them."""
+    v = torch.maximum(v, _f32(2.0 ** -126, v))
+    bits = v.view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)
+    small = m < _f32(_LOG_SQRTHF, v)
+    x = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    e = torch.where(small, e - 1.0, e)
+    x2 = x * x
+    x3 = x2 * x
+    y = _horner(x, _LOG_P[0:3])
+    y1 = _horner(x, _LOG_P[3:6])
+    y2 = _horner(x, _LOG_P[6:9])
+    y = fma_f32(y, x3, y1)
+    y = fma_f32(y, x3, y2)
+    y = fma_f32(y, x3, e * _LOG_Q1)
+    # x - x2/2 and + e*q2 are FMAs of exact products: one rounding each
+    t = (x - x2 * 0.5) + y
+    return t + e * _LOG_Q2
+
+
+def log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's f32 ``log1p`` for ``x > -1`` (f32): ``log(1 + x)`` when
+    ``|x| >= sqrt(2) - 1``, else Cephes' rational form
+    ``x + (-x^2/2 + x^3 P(x)/Q(x))`` with FMA Horner steps.  The ``log``
+    branch is computed only where it is taken."""
+    x2 = x * x
+    q = _horner(x, _LOG1P_Q)
+    p = _horner(x, _LOG1P_P)
+    out = x + ((x * x2) * _div_f32(p, q) - x2 * 0.5)
+    big = (x.abs() >= _LOG1P_SMALL).nonzero(as_tuple=True)
+    out[big] = log_f32(x[big] + 1.0)
+    return out
+
+
+def erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``erf_inv`` (Giles' polynomial) for ``|x| <= 1`` outside
+    the subnormals (which XLA's CPU code flushes to zero):
+    ``w = -log1p(-x^2)``, nine Horner coefficients per branch of ``w < 5``
+    as FMAs, times ``x``; ``+-inf`` at ``+-1``.  The rare ``w >= 5`` branch
+    is computed only where it is taken."""
+    w = -log1p_f32(x * -x)
+    out = _horner(w - 2.5, _ERFINV_LT5) * x
+    tail = (w >= 5.0).nonzero(as_tuple=True)
+    # sqrt in f64, rounded once more to f32, is the correctly rounded f32
+    # sqrt (torch's f32 CPU sqrt is not)
+    wt = torch.sqrt(w[tail].double()).float() - 3.0
+    out[tail] = _horner(wt, _ERFINV_GE5) * x[tail]
+    return torch.where(x.abs() == 1.0, x * math.inf, out)
 
 
 def normal(key, shape, *, device=None) -> torch.Tensor:
-    """``jax.random.normal(key, shape)`` in f32: ``sqrt(2) * erfinv(u)``
-    over JAX's uniforms on ``(nextafter(-1, 0), 1)`` (to ~2e-5, the error
-    of XLA's f32 ``erf_inv``)."""
+    """``jax.random.normal(key, shape)`` in f32, bit-equal:
+    ``f32(sqrt 2) * erf_inv(u)`` over JAX's uniforms on
+    ``(nextafter(-1, 0), 1)``, with XLA's own f32 ``erf_inv`` and ``log1p``
+    rebuilt op by op (no library ``log``, ``log1p`` or ``erfinv``)."""
     def finish(w):
-        lo = torch.tensor(_NORMAL_LO, dtype=torch.float32, device=w.device)
-        span = torch.tensor(1.0, dtype=torch.float32, device=w.device) - lo
+        lo = _f32(_NORMAL_LO, w)
+        span = _f32(1.0, w) - lo
         u = torch.maximum(lo, _unit(w) * span + lo)
-        # erfinv in f64, rounded once: torch's f32 CPU erfinv differs by
-        # up to ~7e-5 between its vectorised and scalar paths
-        z = torch.erfinv(u.to(torch.float64)).to(torch.float32)
-        return z * torch.tensor(math.sqrt(2.0), dtype=torch.float32,
-                                device=w.device)
+        return erf_inv_f32(u) * _f32(_SQRT2_F32, w)
     return _draw(key, shape, device, torch.float32, finish)
+
+
+def randint(key, shape, minval: int, maxval: int, *,
+            device=None) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32), bit-equal:
+    JAX's algorithm draws two 32-bit words per element from the two halves
+    of ``split(key)`` and folds them into ``[minval, maxval)`` with uint32
+    wraparound arithmetic (``hi % span * (2^32 % span) + lo % span``).
+    ``minval`` and ``maxval`` are within int32."""
+    lo_v, hi_v = int(minval), int(maxval)
+    k1, k2 = split(key, 2)
+    hi_bits = random_bits(k1, shape, device=device)
+    lo_bits = random_bits(k2, shape, device=hi_bits.device)
+    span = (hi_v - lo_v) & M32 if hi_v > lo_v else 1
+    # JAX squares 2^16 % span in uint32: past a span of 2^16 it wraps to 0
+    mult = ((2 ** 16 % span) ** 2 & M32) % span
+    off = (((hi_bits % span) * mult) & M32) + lo_bits % span
+    off = (off & M32) % span
+    return to_int32(off + lo_v)
 
 
 def permutation(key, n: int, *, device=None) -> torch.Tensor:

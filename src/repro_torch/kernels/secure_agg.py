@@ -77,9 +77,21 @@ def _counted(fn):
     return fn
 
 
+def _counted_lanes(fn):
+    """K2 counts its PRF lane apart: ``prf_launches``/``prf_plain_calls``
+    (session masks) beside ``launches``/``plain_calls`` (the other lanes)."""
+    fn.prf_launches = 0
+    fn.prf_plain_calls = 0
+    return _counted(fn)
+
+
 def _wrappers():
     return (quantize_mask_prf, weighted_quantize_accum, rotate_quantize_prf,
             pack_residues, unpack_residues, quantize_mask, dequantize)
+
+
+# the name under which counts() reports K2's PRF lane
+PRF_LANE = "weighted_quantize_accum[prf]"
 
 
 def reset_counts() -> None:
@@ -87,12 +99,20 @@ def reset_counts() -> None:
     for fn in _wrappers():
         fn.launches = 0
         fn.plain_calls = 0
+    weighted_quantize_accum.prf_launches = 0
+    weighted_quantize_accum.prf_plain_calls = 0
 
 
 def counts() -> dict:
-    return {fn.__name__: {"launches": fn.launches,
-                          "plain_calls": fn.plain_calls}
-            for fn in _wrappers()}
+    """Launches and plain-version dispatches per wrapper; K2's PRF lane
+    under :data:`PRF_LANE`, its other lanes under its own name."""
+    out = {fn.__name__: {"launches": fn.launches,
+                         "plain_calls": fn.plain_calls}
+           for fn in _wrappers()}
+    out[PRF_LANE] = {
+        "launches": weighted_quantize_accum.prf_launches,
+        "plain_calls": weighted_quantize_accum.prf_plain_calls}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -305,12 +325,12 @@ _c_u32, _c_f32 = ctypes.c_uint32, ctypes.c_float
 _SIGNATURES = {
     "quantize_mask_prf": [
         _c_void_p, _c_void_p, _c_i64, _c_f32, _c_u32, _c_u32, _c_u32,
-        _c_u32, _c_i32, _c_u32, _c_i32, _c_i32, _c_void_p, _c_i32,
+        _c_u32, _c_i32, _c_u32, _c_i32, _c_i32, _c_void_p, _c_i32, _c_i32,
         _c_void_p],
     "weighted_quantize_accum": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_i64,
         _c_i64, _c_f32, _c_i32, _c_u32, _c_u32, _c_i32, _c_i32, _c_i32,
-        _c_void_p, _c_i32, _c_void_p],
+        _c_void_p, _c_i32, _c_i32, _c_void_p],
     "rotate_quantize_prf": [
         _c_void_p, _c_void_p, _c_i64, _c_i64, _c_f32, _c_u32, _c_u32,
         _c_u32, _c_u32, _c_u32, _c_void_p],
@@ -360,6 +380,17 @@ def _neighbor_meta(session: SessionMeta, device):
     return nb, int(nb.shape[1]), int(nb.shape[1])
 
 
+def _aligned(*ts: torch.Tensor) -> int:
+    """16-byte vector loads and stores: every pointer 16-byte aligned."""
+    return int(all(t.data_ptr() % 16 == 0 for t in ts))
+
+
+def _vec(D: int, *ts: torch.Tensor) -> int:
+    """16-byte loads of every row: a row length that is a multiple of 4,
+    aligned pointers."""
+    return int(D % 4 == 0 and _aligned(*ts))
+
+
 def _raise_on(status: int, name: str) -> None:
     if status != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error "
@@ -397,13 +428,13 @@ def quantize_mask_prf(x: torch.Tensor, scale: float, slot: int,
         x.data_ptr(), out.data_ptr(), x.numel(), float(scale), k0, k1, u0,
         u1, int(slot), int(u_offset) & prf.M32, session.num_slots,
         session.degree, None if nb is None else nb.data_ptr(), width,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _aligned(x, out), torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(status, "quantize_mask_prf")
     quantize_mask_prf.launches += 1
     return out
 
 
-@_counted
+@_counted_lanes
 def weighted_quantize_accum(x: torch.Tensor, weights: torch.Tensor,
                             uniforms: torch.Tensor, scale: float, *,
                             masks: Optional[torch.Tensor] = None,
@@ -422,7 +453,10 @@ def weighted_quantize_accum(x: torch.Tensor, weights: torch.Tensor,
         raise ValueError("pass either precomputed `masks` or a PRF "
                          "`session` meta, not both")
     if x.device.type == "cpu":
-        weighted_quantize_accum.plain_calls += 1
+        if session is not None:
+            weighted_quantize_accum.prf_plain_calls += 1
+        else:
+            weighted_quantize_accum.plain_calls += 1
         return weighted_quantize_accum_plain(x, weights, uniforms, scale,
                                              masks=masks, session=session)
     _check_cuda(x, "x", torch.float32, 2)
@@ -454,9 +488,13 @@ def weighted_quantize_accum(x: torch.Tensor, weights: torch.Tensor,
         x.data_ptr(), weights.data_ptr(), uniforms.data_ptr(), mptr,
         out.data_ptr(), C, D, float(scale), mode, k0, k1, offset, num_slots,
         degree, None if nb is None else nb.data_ptr(), width,
+        _vec(D, x, uniforms, out),
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(status, "weighted_quantize_accum")
-    weighted_quantize_accum.launches += 1
+    if mode == 2:
+        weighted_quantize_accum.prf_launches += 1
+    else:
+        weighted_quantize_accum.launches += 1
     return out
 
 
@@ -546,9 +584,6 @@ def unpack_residues(words: torch.Tensor, size: int,
     return out
 
 
-def _vec(D: int, *ts: torch.Tensor) -> int:
-    """16-byte loads: a length that is a multiple of 4, aligned pointers."""
-    return int(D % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in ts))
 
 
 @_counted

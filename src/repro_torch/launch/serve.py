@@ -1,9 +1,10 @@
 """On-device inference entry point (port of ``repro.launch.serve``).
 
-Inits a model from ``--seed``, optionally int8-quantizes the weights (the
-paper: "efficient model quantization ... for incorporating models in mobile
-applications"), prefills a batch of random prompts and greedily decodes N
-tokens per request against the KV cache.  Runs on the GPU unless
+Inits a model from ``--seed`` (the reference's weights and prompt: the same
+``PRNGKey(seed)`` draws, bit for bit), optionally int8-quantizes the weights
+(the paper: "efficient model quantization ... for incorporating models in
+mobile applications"), prefills a batch of random prompts and greedily
+decodes N tokens per request against the KV cache.  Runs on the GPU unless
 ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch import tree as T
+from repro_torch.kernels import prf
 
 
 def quantize_int8(params):
@@ -127,7 +129,8 @@ def main(argv=None, *, session: Optional[dict] = None):
     max_len = args.prompt_len + args.decode_tokens + cfg.num_image_tokens
     cfg = cfg.with_overrides(max_seq_len=max(cfg.max_seq_len, max_len))
     model = build_model(cfg, device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    key = prf.PRNGKey(args.seed)
+    params = model.init(key)
 
     if args.int8:
         n0 = sum(x.numel() * x.element_size() for x in T.leaves(params))
@@ -141,8 +144,7 @@ def main(argv=None, *, session: Optional[dict] = None):
               f"{n1 / 2**20:.1f} MiB")
 
     B, S = args.batch, args.prompt_len
-    g = torch.Generator(device=dev).manual_seed(args.seed)
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    tokens = prf.randint(key, (B, S), 0, cfg.vocab_size, device=dev).long()
     gen = generate(model, params, tokens, args.decode_tokens,
                    max_len=max_len, keep_logits=session is not None)
     print(f"prefill: {B}x{S} in {gen.prefill_s * 1e3:.1f} ms "

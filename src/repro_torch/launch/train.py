@@ -7,10 +7,9 @@ accounting.  Runs on the GPU unless ``--device cpu``:
   PYTHONPATH=src python -m repro_torch.launch.train --classifier \
       --rounds 100 [--device cpu]
 
-The classifier's weights, every round key and the round's draws are the
-reference's (``kernels.prf``); the LLM workload's weights come from a
-``torch.Generator`` seeded with ``--seed``.  Only the dense family is
-ported; ``--checkpoint-dir`` waits for the checkpoint module.
+Both workloads' weights, every round key and the round's draws are the
+reference's (``kernels.prf``).  Only the dense family is ported;
+``--checkpoint-dir`` waits for the checkpoint module.
 """
 from __future__ import annotations
 
@@ -73,11 +72,9 @@ def main(argv=None, *, session: Optional[dict] = None):
 
     if args.classifier:
         model, make_batch = _classifier_workload(args, dev)
-        params = model.init(key)
     else:
         model, make_batch = _llm_workload(args, dev)
-        params = model.init(torch.Generator(device=dev)
-                            .manual_seed(args.seed))
+    params = model.init(key)
     n_params = sum(int(x.numel()) for x in T.leaves(params))
     print(f"model params: {n_params:,}")
 

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import flash_decode as K
+from repro_torch.kernels import prf
 
 # Query-chunk size for memory-safe attention (linear-in-queries score memory).
 ATTN_QUERY_CHUNK = 512
@@ -29,42 +30,13 @@ _F32_MIN = torch.finfo(torch.float32).min
 
 
 # ---------------------------------------------------------------------------
-# Parameter draws (the model's init)
+# Parameter draws (the reference's key tree and jax.random.normal draws)
 # ---------------------------------------------------------------------------
-def init_scale(cfg, name: str) -> float:
-    """The std of a weight leaf's normal init, 0 for zeros, -1 for ones."""
-    d, f = cfg.d_model, cfg.d_ff
-    if name in ("bq", "bk", "bv", "bias"):
-        return 0.0
-    if name == "scale":
-        return -1.0
-    if name == "pos_embed":
-        return 0.02
-    if name in ("wq", "wk", "wv", "w_in", "w_gate", "embed", "unembed"):
-        return 1.0 / math.sqrt(d)
-    if name == "wo":
-        return 1.0 / math.sqrt(cfg.num_heads * cfg.head_dim)
-    if name == "w_out":
-        return 1.0 / math.sqrt(f)
-    raise KeyError(name)
-
-
-def draw(cfg, shapes, generator: torch.Generator, device):
-    """Random f32 leaves for a tree of ``torch.Size`` (sorted-key order):
-    normal * the reference's per-leaf scale, zero biases, unit norm scales."""
-    from repro_torch import tree as T
-    paths, sizes = T.flatten(shapes)
-    leaves = []
-    for path, size in zip(paths, sizes):
-        s = init_scale(cfg, path[-1])
-        if s == 0.0:
-            leaves.append(torch.zeros(size, dtype=torch.float32, device=device))
-        elif s < 0.0:
-            leaves.append(torch.ones(size, dtype=torch.float32, device=device))
-        else:
-            leaves.append(torch.randn(size, generator=generator,
-                                      dtype=torch.float32, device=device) * s)
-    return T.unflatten(paths, leaves)
+def normal_leaf(key, shape, scale: float, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, f32) * scale``, bit-equal (the
+    Python-float scale rounds to f32, as JAX multiplies by it)."""
+    z = prf.normal(key, tuple(shape), device=device)
+    return z * torch.tensor(scale, dtype=torch.float32, device=z.device)
 
 
 # ---------------------------------------------------------------------------
@@ -126,6 +98,22 @@ def attention_shapes(cfg, lead=()):
     if cfg.qkv_bias:
         shapes.update({"bq": (h, hd), "bk": (kv, hd), "bv": (kv, hd)})
     return {k: torch.Size(tuple(lead) + v) for k, v in shapes.items()}
+
+
+def init_attention(key, cfg, device=None):
+    """The reference's ``init_attention``: ``split(key, 4)`` for wq, wk,
+    wv, wo; zero biases."""
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    k1, k2, k3, k4 = prf.split(key, 4)
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(h * hd)
+    p = {"wq": normal_leaf(k1, (d, h, hd), s_in, device),
+         "wk": normal_leaf(k2, (d, kv, hd), s_in, device),
+         "wv": normal_leaf(k3, (d, kv, hd), s_in, device),
+         "wo": normal_leaf(k4, (h, hd, d), s_out, device)}
+    if cfg.qkv_bias:
+        for name, n in (("bq", h), ("bk", kv), ("bv", kv)):
+            p[name] = torch.zeros((n, hd), dtype=torch.float32, device=device)
+    return p
 
 
 def _qkv(cfg, p, x, positions, use_rope: bool):
@@ -216,8 +204,9 @@ def attention_decode(cfg, p, x, cache, pos: int, *,
 
     x: (B, 1, d); cache: {'k': (B, W, KV, hd), 'v': ..., 'pos': (W,) int32};
     pos: absolute position of the new token (a Python int).  Writes the
-    new k/v/pos at slot ``pos`` (``pos % W`` when windowed) IN PLACE, then
-    runs K10 over the cache.  Returns (out (B,1,d), cache).
+    new k/v/pos at slot ``pos`` (``pos % W`` when windowed; clamped to
+    ``W - 1`` as the reference's ``dynamic_update_slice`` clamps) IN PLACE,
+    then runs K10 over the cache.  Returns (out (B,1,d), cache).
     """
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _qkv(cfg, p, x, positions, cfg.pos_emb == "rope")
@@ -225,6 +214,9 @@ def attention_decode(cfg, p, x, cache, pos: int, *,
 
     W = cache["k"].shape[1]
     slot = pos if window is None else pos % W  # ring buffer when windowed
+    # dynamic_update_slice clamps the write into the cache: past the end it
+    # lands on the last slot
+    slot = min(max(slot, 0), W - 1)
     cache["k"][:, slot] = k_new[:, 0]
     cache["v"][:, slot] = v_new[:, 0]
     cache["pos"][slot] = pos
@@ -258,6 +250,19 @@ def mlp_shapes(cfg, d_ff: int, lead=()):
     return {k: torch.Size(tuple(lead) + v) for k, v in shapes.items()}
 
 
+def init_mlp(key, cfg, d_ff: int, device=None):
+    """The reference's ``init_mlp``: ``split(key, 3)`` for w_in, w_out and
+    (swiglu) w_gate."""
+    d = cfg.d_model
+    k1, k2, k3 = prf.split(key, 3)
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(d_ff)
+    p = {"w_in": normal_leaf(k1, (d, d_ff), s_in, device),
+         "w_out": normal_leaf(k2, (d_ff, d), s_out, device)}
+    if cfg.mlp_act == "swiglu":
+        p["w_gate"] = normal_leaf(k3, (d, d_ff), s_in, device)
+    return p
+
+
 def apply_mlp(cfg, p, x):
     dt = x.dtype
     h = x @ p["w_in"].to(dt)
@@ -281,6 +286,21 @@ def embedding_shapes(cfg):
         p["unembed"] = torch.Size((cfg.d_model, cfg.vocab_size))
     if cfg.pos_emb == "learned":
         p["pos_embed"] = torch.Size((cfg.max_seq_len, cfg.d_model))
+    return p
+
+
+def init_embedding(key, cfg, device=None):
+    """The reference's ``init_embedding``: embed from ``key``, unembed from
+    ``fold_in(key, 1)``, learned positions from ``fold_in(key, 2)``."""
+    s = 1.0 / math.sqrt(cfg.d_model)
+    p = {"embed": normal_leaf(key, (cfg.vocab_size, cfg.d_model), s, device)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = normal_leaf(prf.fold_in(key, 1),
+                                   (cfg.d_model, cfg.vocab_size), s, device)
+    if cfg.pos_emb == "learned":
+        p["pos_embed"] = normal_leaf(prf.fold_in(key, 2),
+                                     (cfg.max_seq_len, cfg.d_model), 0.02,
+                                     device)
     return p
 
 

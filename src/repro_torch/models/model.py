@@ -2,7 +2,7 @@
 
 ``build_model(cfg)`` returns a ``Model`` with the reference's interface:
 
-  init(generator)                   -> params
+  init(key)                         -> params
   apply(params, batch)              -> (logits, aux)
   loss_fn(params, batch)            -> (loss, metrics)
   init_cache(batch_size, max_len)   -> decode cache
@@ -16,15 +16,16 @@ returns it); ``pos`` is a Python int.
 
 ``build_mlp_classifier(cfg)`` builds the paper's own model, the dense-feature
 MLP binary classifier (``configs/mlp.py``); its ``init(key)`` draws the
-reference's ``jax.random.normal`` weights from the same key words (equal to
-~2e-5 before the ``fan_in ** -0.5`` scale).
+reference's ``jax.random.normal`` weights from the same key words, bit for
+bit.
 
-``param_shapes`` gives the exact leaf paths and shapes of the JAX init and
-``init_params`` draws random weights of those shapes with the same per-leaf
-scales (normal * 1/sqrt(fan_in), zero biases, unit norm scales) from a
-``torch.Generator``.  Layout (dense, ``num_layers > 1``): the layers are
-stacked under ``stack.scan`` with the layer axis leading, as the JAX
-``vmap``-ed init produces them::
+``param_shapes`` gives the exact leaf paths and shapes of the JAX init, and
+``init(key)`` (``init_params(cfg, seed)`` for ``PRNGKey(seed)``) draws the
+reference's own weights from the same key words, bit for bit: the same key
+tree (``fold_in``/``split``) and ``jax.random.normal`` draws, times the same
+f32 scales; zero biases, unit norm scales.  Layout (dense, ``num_layers >
+1``): the layers are stacked under ``stack.scan`` with the layer axis
+leading, as the JAX ``vmap``-ed init produces them::
 
   embedding.embed                       (vocab, d)
   final_norm.scale                      (d,)
@@ -72,13 +73,19 @@ def param_shapes(cfg) -> Dict:
             "final_norm": L.norm_shapes(cfg, cfg.d_model)}
 
 
-def init_params(cfg, generator: torch.Generator, device=None) -> Dict:
-    """Random f32 parameters of ``cfg`` on ``device`` (default the GPU).
+def init_params(cfg, seed: int = 0, device=None) -> Dict:
+    """``build_model(cfg).init(PRNGKey(seed))`` of the reference, bit-equal,
+    on ``device`` (default the GPU)."""
+    return init_from_key(cfg, prf.PRNGKey(seed), _device.resolve(device))
 
-    ``generator`` must live on ``device``.  The numbers differ from the JAX
-    init (another generator); shapes, tree and scales match it.
-    """
-    return L.draw(cfg, param_shapes(cfg), generator, _device.resolve(device))
+
+def init_from_key(cfg, key, device) -> Dict:
+    """The reference's dense init from key words: the embedding from
+    ``fold_in(key, 0)``, the stack from ``fold_in(key, 1)``."""
+    _check_dense(cfg, "init")
+    return {"embedding": L.init_embedding(prf.fold_in(key, 0), cfg, device),
+            "stack": T.init_stack(prf.fold_in(key, 1), cfg, device),
+            "final_norm": L.init_norm(cfg, cfg.d_model, device)}
 
 
 def _embed_inputs(cfg, params, batch, dtype):
@@ -97,8 +104,8 @@ def build_model(cfg, *, device=None) -> Model:
     dev = _device.resolve(device)
     dtype = getattr(torch, cfg.compute_dtype)
 
-    def init(generator: torch.Generator):
-        return init_params(cfg, generator, dev)
+    def init(key):
+        return init_from_key(cfg, key, dev)
 
     def apply(params, batch):
         x = _embed_inputs(cfg, params, batch, dtype)

@@ -18,6 +18,7 @@ from typing import Dict, Iterator, Tuple
 import torch
 
 from repro_torch import tree as T
+from repro_torch.kernels import prf
 from repro_torch.models import layers as L
 
 _DENSE_KINDS = ("attn", "local_attn")
@@ -50,8 +51,16 @@ def block_shapes(cfg, kind: str, lead=()) -> Dict:
     }
 
 
-def init_block(cfg, kind: str, generator: torch.Generator, device=None):
-    return L.draw(cfg, block_shapes(cfg, kind), generator, device)
+def init_block(key, cfg, kind: str, device=None):
+    """The reference's ``init_block``: ``split(key, 4)``, attention from the
+    first key and the MLP from the second; unit norm scales."""
+    _check_kind(kind)
+    k1, k2, _, _ = prf.split(key, 4)
+    d = cfg.d_model
+    return {"norm1": L.init_norm(cfg, d, device),
+            "attn": L.init_attention(k1, cfg, device),
+            "norm2": L.init_norm(cfg, d, device),
+            "mlp": L.init_mlp(k2, cfg, cfg.d_ff, device)}
 
 
 def apply_block(cfg, p, x, positions, kind: str):
@@ -146,8 +155,28 @@ def stack_shapes(cfg) -> Dict:
     return _stack_tree(cfg, lambda kind, lead: block_shapes(cfg, kind, lead))
 
 
-def init_stack(cfg, generator: torch.Generator, device=None) -> Dict:
-    return L.draw(cfg, stack_shapes(cfg), generator, device)
+def init_stack(key, cfg, device=None) -> Dict:
+    """The reference's ``init_stack``: head layer ``i`` from ``fold_in(key,
+    i)``; a scanned tail's layers from ``split(fold_in(key, 10_000),
+    n_tail)`` (the reference ``vmap``s the block init over those keys),
+    written into the stacked leaves one layer at a time."""
+    kinds = cfg.layer_kinds
+    if not _is_scannable(cfg):
+        return {f"layer_{i}": init_block(prf.fold_in(key, i), cfg, kind,
+                                         device)
+                for i, kind in enumerate(kinds)}
+    p = {f"layer_{i}": init_block(prf.fold_in(key, i), cfg, kinds[i], device)
+         for i in range(cfg.first_k_dense)}
+    n_tail = cfg.num_layers - cfg.first_k_dense
+    paths, sizes = T.flatten(block_shapes(cfg, kinds[-1], (n_tail,)))
+    leaves = [torch.empty(s, dtype=torch.float32, device=device)
+              for s in sizes]
+    for j, k in enumerate(prf.split(prf.fold_in(key, 10_000), n_tail)):
+        _, layer = T.flatten(init_block(k, cfg, kinds[-1], device))
+        for dst, src in zip(leaves, layer):
+            dst[j] = src
+    p["scan"] = T.unflatten(paths, leaves)
+    return p
 
 
 def apply_stack(cfg, p, x, positions):

@@ -83,12 +83,98 @@ def test_cuda_kernels_match_plain_versions(cuda):
         assert torch.equal(back, q)
     assert ksa.counts() == {
         "quantize_mask_prf": {"launches": 3, "plain_calls": 0},
-        "weighted_quantize_accum": {"launches": 3, "plain_calls": 0},
+        "weighted_quantize_accum": {"launches": 1, "plain_calls": 0},
+        ksa.PRF_LANE: {"launches": 2, "plain_calls": 0},
         "rotate_quantize_prf": {"launches": 3, "plain_calls": 0},
         "pack_residues": {"launches": 3, "plain_calls": 0},
         "unpack_residues": {"launches": 3, "plain_calls": 0},
         "quantize_mask": {"launches": 0, "plain_calls": 0},
         "dequantize": {"launches": 0, "plain_calls": 0}}
+
+
+def paired_prf_sessions(device):
+    """Graphs for the paired K1/K2: the 8-slot complete graph of the main
+    path (keys in registers), other complete graphs, rings and a table
+    (keys in shared memory), up to MAX_KERNEL_NEIGHBORS neighbours."""
+    big = ksa.MAX_KERNEL_NEIGHBORS
+    perm = [3, 0, 9, 1, 4, 8, 2, 7, 6, 5]
+    return {
+        "complete8": _session(8, 0),
+        "complete3": _session(3, 0),
+        "complete10": _session(10, 0),
+        "ring10": _session(10, 4),
+        "table10": ksa.SessionMeta(
+            key_words=(11, 13), num_slots=10, degree=4,
+            neighbors=sa.neighbor_table(10, 4, perm, device=device)),
+        f"complete{big}": _session(big, 0),
+        f"ring{big + 2}x{big}": _session(big + 2, big),
+    }
+
+
+@pytest.mark.cuda
+def test_cuda_paired_prf_kernels_match_plain_versions(cuda):
+    """K1 and K2's PRF lane walk element pairs (one Threefry per counter,
+    both words used): bit-equal at odd and even n (1, 2, 3, ...), odd and
+    even uniform offsets, unaligned inputs, every graph kind, and K2 shards
+    whose rows cross num_slots."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    sessions = paired_prf_sessions(cuda)
+    big = ksa.MAX_KERNEL_NEIGHBORS
+    ksa.reset_counts()
+    launches = 0
+    for name, s in sessions.items():
+        sizes = (1, 2, 3, 5, 8, 1001) if s.num_slots > 10 else \
+            (1, 2, 3, 4, 5, 7, 8, 1000, 4097)
+        for n in sizes:
+            x = torch.randn(n + 1, generator=g, device=cuda) * 0.01
+            for xs in (x[:n], x[1:]):  # aligned, and 4 bytes off
+                for slot in {0, s.num_slots // 2, s.num_slots - 1}:
+                    for u_off in (0, 1, 2, 3, 12345):
+                        got = ksa.quantize_mask_prf(xs, SCALE, slot, UW, s,
+                                                    u_offset=u_off)
+                        want = ksa.quantize_mask_prf_plain(
+                            xs, SCALE, slot, UW, s, u_offset=u_off)
+                        assert torch.equal(got, want), (name, n, slot, u_off)
+                        launches += 1
+    assert ksa.quantize_mask_prf.launches == launches
+    launches = 0
+    for name, s in sessions.items():
+        shapes = ((2, 5), (3, 1001)) if s.num_slots > 10 else \
+            ((1, 1), (8, 2), (8, 3), (5, 1000), (8, 4097), (3, 4096))
+        for C, D in shapes:
+            xs = torch.randn(C, D, generator=g, device=cuda) * 0.01
+            ws = torch.rand(C, generator=g, device=cuda)
+            us = prf.uniform_block(1, 2, C * D, device=cuda).reshape(C, D)
+            # shards: rows at slots offset.., the ones past the session
+            # carry no mask
+            for off in {0, 3, s.num_slots - 2, s.num_slots - 1}:
+                kw = {"session": s._replace(slot_offset=off)}
+                got = ksa.weighted_quantize_accum(xs, ws, us, SCALE, **kw)
+                want = ksa.weighted_quantize_accum_plain(xs, ws, us, SCALE,
+                                                         **kw)
+                assert torch.equal(got, want), (name, C, D, off)
+                launches += 1
+    assert ksa.weighted_quantize_accum.prf_launches == launches
+    assert big in {int(s.num_slots) for s in sessions.values()}
+
+
+@pytest.mark.cuda
+def test_cuda_normal_randint_and_init_match_the_cpu(cuda):
+    """The rebuilt jax.random draws give the same bits on the card as on
+    the CPU (every op of normal is IEEE-rounded on both), and so does the
+    dense family's init."""
+    for seed, shape in ((0, (1 << 20,)), (7, (1000, 3)), (123, (1,))):
+        key = prf.fold_in(prf.PRNGKey(seed), 3)
+        assert torch.equal(prf.normal(key, shape, device=cuda).cpu(),
+                           prf.normal(key, shape))
+        assert torch.equal(
+            prf.randint(key, shape, 0, 151_936, device=cuda).cpu(),
+            prf.randint(key, shape, 0, 151_936))
+    cfg = registry.get_config("qwen2-1.5b", reduced=True)
+    got = build_model(cfg, device=cuda).init(prf.PRNGKey(2))
+    want = build_model(cfg, device="cpu").init(prf.PRNGKey(2))
+    for a, b in zip(T.leaves(want), T.leaves(got)):
+        assert torch.equal(b.cpu(), a)
 
 
 @pytest.mark.cuda
@@ -122,10 +208,9 @@ def test_cuda_generate_reduced_matches_teacher_forcing(cuda):
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = registry.get_config("qwen2-1.5b", reduced=True)
     model = build_model(cfg, device=cuda)
-    params = model.init(torch.Generator(device=cuda).manual_seed(0))
-    g = torch.Generator(device=cuda).manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 16), device=cuda,
-                           generator=g)
+    params = model.init(prf.PRNGKey(0))
+    tokens = prf.randint(prf.PRNGKey(1), (2, 16), 0, cfg.vocab_size,
+                         device=cuda).long()
     kfd.reset_counts()
     gen = serve.generate(model, params, tokens, 4, keep_logits=True)
     assert kfd.counts()["flash_decode"] == {
@@ -180,7 +265,7 @@ def test_cuda_round_matches_the_cpu_round(cuda, bits):
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = registry.get_config("qwen2-1.5b", reduced=True)
     model = build_model(cfg, device="cpu")
-    params = model.init(torch.Generator().manual_seed(0))
+    params = model.init(prf.PRNGKey(0))
     g = torch.Generator().manual_seed(1)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 1, 16),
                                      generator=g)}

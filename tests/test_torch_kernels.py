@@ -97,7 +97,10 @@ def test_weighted_quantize_accum_plain_matches_pallas_and_ref(lane):
                                                  jkw["session"], perm=perm)
     ksa.reset_counts()
     got = ksa.weighted_quantize_accum(tx, tw, tu, SCALE, **kw)
-    assert ksa.weighted_quantize_accum.plain_calls == 1
+    # the PRF lane is counted apart from the other two
+    prf_lane = "session" in kw
+    assert ksa.weighted_quantize_accum.plain_calls == int(not prf_lane)
+    assert ksa.weighted_quantize_accum.prf_plain_calls == int(prf_lane)
     pallas = jksa.weighted_quantize_accum(jx, jw, ju, SCALE, interpret=True,
                                           **jkw)
     np.testing.assert_array_equal(np.asarray(pallas), got.numpy())
@@ -223,11 +226,14 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
         ksa.quantize_mask(x, None, x, SCALE, 4.0)
     with pytest.raises(ValueError, match="CUDA"):
         ksa.dequantize(q, 1e-4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ksa.weighted_quantize_accum(x.reshape(2, 8), x[:2], x.reshape(2, 8),
+                                    SCALE, session=_tsession(8, 0))
     assert ksa.counts() == {name: {"launches": 0, "plain_calls": 0} for name in
                             ("quantize_mask_prf", "weighted_quantize_accum",
                              "rotate_quantize_prf", "pack_residues",
                              "unpack_residues", "quantize_mask",
-                             "dequantize")}
+                             "dequantize", ksa.PRF_LANE)}
     from repro_torch.kernels import dp_clip as kdp
     kdp.reset_counts()
     with pytest.raises(ValueError, match="CUDA"):

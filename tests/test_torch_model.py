@@ -2,7 +2,8 @@
 
 ``param_shapes``/``init_params`` give the JAX init's exact tree (paths and
 shapes, via ``jax.eval_shape``) for qwen2-reduced and for qwen2-1.5b at its
-published widths cut to 2 layers.  Then the whole slice: the qwen2-reduced
+published widths cut to 2 layers, and ``init_params(cfg, seed)`` the JAX
+init's own weights, bit for bit.  Then the whole slice: the qwen2-reduced
 parameter tree (JAX-initialised, converted) through the masked ``client``
 engine over a multi-chunk plan with one slot dropping out, port against
 reference — bit-equal parameters after the recovering flush.
@@ -45,10 +46,27 @@ def test_param_shapes_match_jax_init(name):
         assert len(paths) == 14
         assert sum(int(np.prod(s)) for s in shapes) == 326_970_880
     else:
-        p = init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+        p = init_params(tcfg, seed=0, device="cpu")
         assert [tuple(x.shape) for x in T.leaves(p)] == [s for _, s in want]
         assert float(p["final_norm"]["scale"].min()) == 1.0
         assert float(p["stack"]["scan"]["attn"]["bq"].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+@pytest.mark.parametrize("layers", [2, 3])
+def test_init_params_equal_the_reference_init(seed, layers):
+    """``init_params(cfg, seed)`` is the reference's
+    ``build_model(cfg).init(PRNGKey(seed))`` leaf for leaf, bit for bit
+    (qwen2-reduced: narrow widths, 2 or 3 scanned layers)."""
+    jcfg = jq.reduced().with_overrides(num_layers=layers)
+    tcfg = tq.reduced().with_overrides(num_layers=layers)
+    want = build_model(jcfg).init(jax.random.PRNGKey(seed))
+    got = init_params(tcfg, seed=seed, device="cpu")
+    paths, leaves = T.flatten(got)
+    jflat = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert paths == [tuple(k.key for k in p) for p, _ in jflat]
+    for (_, a), b in zip(jflat, leaves):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
 def test_qwen2_reduced_through_client_engine_bit_equal():

@@ -98,23 +98,26 @@ def test_apply_norm(norm):
 
 @pytest.mark.parametrize("num_layers", [3, 1])  # stack.scan, layer_0
 def test_block_and_stack_init_trees_match_the_reference(num_layers):
+    """The same tree (paths and shapes) and, from the same key, the same
+    weights bit for bit: the reference's split/fold_in key tree and its
+    ``jax.random.normal`` draws."""
     jc, tc = _cfgs(num_layers=num_layers)
-    key = jax.random.PRNGKey(0)
+    key = jax.random.fold_in(jax.random.PRNGKey(0), 1)
+    kw = tuple(int(w) for w in np.asarray(key))
 
     def tree(t):
         flat = jax.tree_util.tree_flatten_with_path(t)[0]
         return [(tuple(k.key for k in path), tuple(x.shape))
                 for path, x in flat]
 
-    g = torch.Generator().manual_seed(0)
-    for want, got in (
-            (jax.eval_shape(lambda k: JT.init_block(k, jc, "attn"), key),
-             TT.init_block(tc, "attn", g, "cpu")),
-            (jax.eval_shape(lambda k: JT.init_stack(k, jc), key),
-             TT.init_stack(tc, g, "cpu"))):
+    for want, got in ((JT.init_block(key, jc, "attn"),
+                       TT.init_block(kw, tc, "attn", "cpu")),
+                      (JT.init_stack(key, jc), TT.init_stack(kw, tc, "cpu"))):
         paths, leaves = T.flatten(got)
         assert [(p, tuple(x.shape)) for p, x in zip(paths, leaves)] == \
             tree(want)
+        for a, b in zip(jax.tree.leaves(want), leaves):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
 @pytest.mark.parametrize("theta", [10_000.0, 1_000_000.0])
@@ -213,6 +216,35 @@ def test_attention_decode(window):
         _close(jcache[name], tcache[name], LAYER)
     np.testing.assert_array_equal(np.asarray(jcache["pos"]),
                                   tcache["pos"].numpy())
+
+
+@pytest.mark.parametrize("extra", [0, 3])
+def test_attention_decode_at_a_full_cache_clamps_the_write(extra):
+    """Past the cache's end the reference's ``dynamic_update_slice`` clamps
+    the new k/v/pos onto the last slot; the port writes the same slot."""
+    jc, tc = _cfgs()
+    rs = np.random.RandomState(9)
+    p = _attn_params(jc, rs)
+    B, W = 2, 16
+    pos = W + extra
+    kv, hd = jc.num_kv_heads, jc.head_dim
+    cache = {"k": _randn(rs, B, W, kv, hd), "v": _randn(rs, B, W, kv, hd),
+             "pos": np.arange(W, dtype=np.int32)}
+    x = _randn(rs, B, 1, jc.d_model)
+    jy, jcache = JL.attention_decode(jc, jax.tree.map(jnp.asarray, p),
+                                     jnp.asarray(x),
+                                     jax.tree.map(jnp.asarray, cache),
+                                     jnp.int32(pos))
+    ty, tcache = TL.attention_decode(tc, convert.params_from_numpy(p), _t(x),
+                                     convert.cache_from_numpy(cache), pos)
+    _close(jy, ty, LAYER)
+    for name in ("k", "v"):
+        _close(jcache[name], tcache[name], LAYER)
+        np.testing.assert_array_equal(tcache[name][:, :W - 1].numpy(),
+                                      cache[name][:, :W - 1])
+    np.testing.assert_array_equal(np.asarray(jcache["pos"]),
+                                  tcache["pos"].numpy())
+    assert int(tcache["pos"][W - 1]) == pos
 
 
 # ---------------------------------------------------------------------------
@@ -342,10 +374,11 @@ def test_serve_main_on_cpu_prints_the_reference_lines(capsys):
     assert kfd.counts()["flash_decode"]["plain_calls"] == 2 * 4
     assert len(got) == len(want) == 4
     assert got[0] == want[0]  # the int8 MiB line: shapes only
-    for g, w, head in zip(got[1:], want[1:], ("prefill: 2x16 in ",
-                                              "decode: 4 steps in ",
-                                              "sample: [")):
+    for g, w, head in zip(got[1:3], want[1:3], ("prefill: 2x16 in ",
+                                                "decode: 4 steps in ")):
         assert g.startswith(head) and w.startswith(head)
+    # the reference's weights and prompt, so the reference's tokens
+    assert got[3] == want[3]
     gen = session["generation"]
     assert tuple(gen.tokens.shape) == (2, 5)
     assert got[3] == f"sample: {gen.tokens[0].tolist()}"

@@ -8,9 +8,9 @@ Held against the JAX pipeline on the same seeds and keys:
   the label ratio, the drop-off policy and every round's keep mask;
 - round losses within 1e-5 (the sync round's tolerance: torch's gradients
   and the f32 sums of K3 in another order; the TEE noise is the
-  reference's normal draw to ~2e-5 of its std);
-- DP metrics within 1e-4 (the count noise to ~2e-5, through ratios and a
-  trapezoid);
+  reference's normal draw bit for bit, added without XLA's FMA);
+- DP metrics within 1e-4 (the trained models' scores differ by the round's
+  1e-5, through ratios and a trapezoid);
 - the accountant's epsilon equal (pure Python).
 """
 import jax

@@ -4,8 +4,8 @@ package's (``repro.launch.train``), both on the CPU.
 The classifier run prints the reference's lines: every round's loss,
 clip fraction, update norm and epsilon agree to the printed precision within
 one unit of the last digit (the weights, the keys, the uniforms and the TEE
-noise are the reference's draws; gradients and f32 sums differ in the last
-bits, and the noise by ~2e-5 of its std).  The reduced qwen2 run trains
+noise are the reference's draws, bit for bit; gradients and f32 sums differ
+in the last bits, and XLA adds the noise as one FMA).  The reduced qwen2 run trains
 and prints finite numbers; unported options raise.
 """
 import re
