@@ -11,13 +11,14 @@ Phases (each prints its seconds):
      circulant / table mask graphs, ``slot_offset`` shards, rows beyond the
      session, nonzero uniform offsets, several fixed-point scales, every
      packed width 1..32 in both directions, and the main path's own shapes;
-     K1 and K2's PRF lane, which walk element pairs (one Threefry per
+     K1, K2's PRF lane and K4, which walk element pairs (one Threefry per
      counter, both words used), at odd and even n (1, 2, 3, ...), odd and
-     even uniform offsets, unaligned x, complete graphs of 3, 8, 10 and
-     4000 slots, rings up to 4000 neighbours and a table, and K2 shards
-     whose rows cross num_slots; and the rebuilt ``jax.random`` draws on the
-     card bit-equal to the CPU's (``normal`` on 2^24 draws, ``randint``, the
-     dense init);
+     even uniform offsets (up to stream positions past 2^32), unaligned x,
+     complete graphs of 3, 8, 10 and 4000 slots, rings up to 4000
+     neighbours and a table, and K2 shards whose rows cross num_slots; and
+     the rebuilt ``jax.random`` draws and ``prf.sqrt_f32`` on the card
+     bit-equal to the CPU's (``normal`` and ``sqrt_f32`` on 2^24 values,
+     ``randint``, the dense init);
   2. the main path: the buffered-async aggregation server (``AsyncServer``)
      on qwen2-1.5b's published widths, depth cut from 28 to 2 layers
      (326,970,880 parameters, 1.31 GB f32 per delta), ``buffer_size=8``,
@@ -89,7 +90,9 @@ Phase 1 also holds K9 (``bit_counts``) bit-equal to its plain version
 values, +-inf thresholds, the fleet tile), and K10 (``flash_decode``, float
 attention) to its plain version within rtol = atol = 2e-5 (f32 sums in
 another order): f32 and bf16 K/V, window 0 and > 0, wrapped ring buffers,
-partly filled caches, ragged W, the serve path's shapes; K6
+partly filled caches, ragged W (1, 7, 63, 65, 129, 300, ...), hd 32 to
+256, the serve path's shapes and decode_32k, with the kernel's CTAs per SM
+and the split count it gives; K6
 (``quantize_mask``, with and without a mask, ragged D, +-inf, NaN and
 saturating inputs) and K7 (``dequantize``, both multipliers) bit-equal; K3
 (``sq_norms``) within rtol 1e-5 and K8 (``scale_accum``) within 1e-6 of
@@ -282,18 +285,26 @@ def kernel_parity(torch) -> None:
     log(f"  weighted_quantize_accum: {n} cases bit-equal to the plain "
         "version")
     n = 0
-    for D in (1, 511, 512, 4097, (1 << 20) + 3):
-        x = torch.randn(D, generator=g, device="cuda") * 1e-3
-        for sc, u_off in ((scale, 0), (131067.5, 4097), (3333.25, 1 << 30)):
-            okw = (0x1234 + D, 0xCB01)
-            got = ksa.rotate_quantize_prf(x, sc, okw, (5, 6), u_offset=u_off)
-            want = ksa.rotate_quantize_prf_plain(x, sc, okw, (5, 6),
-                                                 u_offset=u_off)
-            torch.cuda.synchronize()
-            check(torch.equal(got, want),
-                  f"rotate_quantize_prf != plain (D={D}, scale={sc}, "
-                  f"u_offset={u_off})")
-            n += 1
+    # even and odd uniform offsets (both ODD_U cases), one whose stream
+    # positions pass 2^32, ragged and whole Hadamard blocks, a tail quad,
+    # x 4 bytes off 16-byte alignment
+    scales = (scale, 131067.5, 3333.25, 16777215.6875, 1e-3)
+    for D in (1, 3, 511, 512, 513, 4097, (1 << 20) + 3):
+        buf = torch.randn(D + 1, generator=g, device="cuda") * 1e-3
+        for i, u_off in enumerate((0, 1, 4097, 1 << 30, (1 << 32) - 3)):
+            sc = scales[i]
+            okw = (0x1234 + D, 0xCB01 + i)
+            for x in ((buf[:D], buf[1:]) if D == 4097 else (buf[:D],)):
+                got = ksa.rotate_quantize_prf(x, sc, okw, (5, 6),
+                                              u_offset=u_off)
+                want = ksa.rotate_quantize_prf_plain(x, sc, okw, (5, 6),
+                                                     u_offset=u_off)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"rotate_quantize_prf != plain (D={D}, scale={sc}, "
+                      f"u_offset={u_off}, "
+                      f"aligned={x.data_ptr() % 16 == 0})")
+                n += 1
     log(f"  rotate_quantize_prf: {n} cases bit-equal to the plain version")
     n = 0
     for bits in range(1, 33):
@@ -318,13 +329,33 @@ def kernel_parity(torch) -> None:
     round_kernel_parity(torch, g)
     bitagg_parity(torch, g)
     jax_random_parity(torch)
+    sqrt_parity(torch, g)
+
+
+def sqrt_parity(torch, g) -> None:
+    """``prf.sqrt_f32`` (the port's square root wherever the reference has
+    ``jnp.sqrt``) gives the same bits on the card as on the CPU, where it
+    is the correctly rounded root (tests/test_torch_sqrt.py): 2^24 values,
+    half random bit patterns of every finite non-negative f32."""
+    from repro_torch.kernels import prf
+    n = 1 << 24
+    uni = torch.rand(n // 2, generator=g, device="cuda") * 1e4
+    pat = torch.randint(0, 0x7F800000, (n // 2,), generator=g, device="cuda",
+                        dtype=torch.int64).to(torch.int32).view(torch.float32)
+    x = torch.cat([uni, pat])
+    got = prf.sqrt_f32(x).cpu()
+    want = prf.sqrt_f32(x.cpu())
+    diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    check(diff == 0, f"sqrt_f32 on the card != on the CPU: {diff} of {n}")
+    log(f"  sqrt_f32: {n:,} values bit-equal on the card and the CPU")
 
 
 def paired_prf_parity(torch, g) -> None:
     """K1 and K2's PRF lane walk element pairs (one Threefry per counter,
     both words used): bit-equal at odd and even n (1, 2, 3, ...), odd and
-    even uniform offsets, x 4 bytes off 16-byte alignment, the 8-slot
-    complete graph (keys in registers), other complete graphs, rings and
+    even uniform offsets (one whose stream positions pass 2^32), x 4 bytes
+    off 16-byte alignment, the 8-slot complete graph (keys in registers),
+    other complete graphs, rings and
     a table up to MAX_KERNEL_NEIGHBORS neighbours (keys in shared memory;
     K2 staging all rows or row by row), and K2 shards whose rows cross
     num_slots."""
@@ -356,7 +387,7 @@ def paired_prf_parity(torch, g) -> None:
             x = torch.randn(n + 1, generator=g, device="cuda") * 1e-3
             for xs in (x[:n], x[1:]):
                 for slot in sorted({0, s.num_slots // 2, s.num_slots - 1}):
-                    for u_off in (0, 1, 2, 3, 12345):
+                    for u_off in (0, 1, 2, 3, 12345, (1 << 32) - 3):
                         got = ksa.quantize_mask_prf(xs, scale, slot, (5, 6),
                                                     s, u_offset=u_off)
                         want = ksa.quantize_mask_prf_plain(
@@ -540,6 +571,12 @@ def flash_decode_parity(torch, g) -> None:
         (8, 12, 2, 128, 2080, f32, 0, 2079, 2080),  # serve: last step
         (8, 12, 2, 128, 2080, bf16, 0, 2079, 2080),
         (8, 12, 2, 128, 1024, f32, 1024, 2079, 1024),  # --window 1024 ring
+        (8, 12, 2, 128, 1, f32, 0, 0, 1),  # one slot: one split
+        (8, 12, 2, 128, 63, f32, 0, 62, 63),  # tiles partly filled
+        (8, 12, 2, 128, 65, bf16, 0, 64, 65),
+        (8, 12, 2, 128, 129, f32, 0, 128, 100),
+        (2, 16, 2, 256, 700, bf16, 0, 699, 700),  # hd 256, bf16
+        (128, 12, 2, 128, 32768, f32, 0, 32767, 32768),  # decode_32k
     ]
     worst = 0.0
     for B, H, KV, hd, W, dt, window, pos, filled in cases:
@@ -557,8 +594,23 @@ def flash_decode_parity(torch, g) -> None:
               f"flash_decode != plain (B={B} H={H} KV={KV} hd={hd} W={W} "
               f"{dt} window={window} pos={pos} filled={filled}): max |err| "
               f"{err:.3g}")
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
     log(f"  flash_decode: {len(cases)} cases within rtol=atol=2e-5 of the "
         f"plain version (max |err| {worst:.3g})")
+    # the split choice on this card: whole waves of the kernel's CTAs
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    occ = {(hd, bf): kfd.ctas_per_sm("cuda", hd, bf)
+           for hd in kfd.HEAD_DIMS for bf in (False, True)}
+    waves = []
+    for shape, B, W in FD_SHAPES:
+        nsplit = kfd.splits(B, 2, 6, W, sms=sms, per_sm=occ[(128, False)])
+        ctas = kfd.row_groups(B, 2, 6) * nsplit
+        waves.append(f"{shape} {nsplit} splits, {ctas} CTAs = "
+                     f"{ctas / (sms * occ[(128, False)]):g} waves")
+    log(f"  flash_decode CTAs per SM (hd, bf16): "
+        f"{', '.join(f'{k}: {v}' for k, v in occ.items())}; {sms} SMs; "
+        f"{'; '.join(waves)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1302,9 +1354,14 @@ def flash_decode_times(torch, launches: int) -> dict:
                    "src/repro/kernels/flash_decode.py:62", launches, ms,
                    plain_ms, ops, nbytes, max_abs_err=err, library_ms=lib_ms)
         e["library_max_abs_err"] = lib_err
-        nsplit, _ = kfd.splits(B, KV, H // KV, W)
+        nsplit = kfd.splits(
+            B, KV, H // KV, W,
+            sms=torch.cuda.get_device_properties(0).multi_processor_count,
+            per_sm=kfd.ctas_per_sm("cuda", hd, False))
+        e["splits"] = nsplit
         log(f"  flash_decode {shape} (B={B} H={H} KV={KV} hd={hd} W={W}, "
-            f"f32, {nsplit} splits): {ms:.4f} ms on the device, "
+            f"f32, {nsplit} splits merged in the launch): {ms:.4f} ms on "
+            f"the device, "
             f"{call_ms:.4f} ms per call back to back (bound "
             f"{e['bound_ms']:.4f} ms by {e['bound_by']}); plain "
             f"{plain_ms:.3f} ms; SDPA "
@@ -1412,16 +1469,22 @@ def kernel_times(torch, counts) -> list:
           "width")
     del want
     ms = _cuda_ms(torch, run, 5)
+    # the even-offset case (two counters a quad, where 12345 takes three)
+    even_ms = _cuda_ms(torch, lambda: ksa.rotate_quantize_prf(
+        x, scale, okw, (1, 2), u_offset=0), 5)
     full = int(got.numel())
     # one Threefry per two positions of each stream (sign and uniform, as
     # stream_block generates them), 9 butterfly adds, scale, round
     ops = full * THREEFRY_OPS + full * (9 + 5)
     nbytes = D * 4 + full * 4
-    out.append(_entry("rotate_quantize_prf",
-                      "src/repro_torch/kernels/csrc/rotate_quantize_prf.cu",
-                      "src/repro/kernels/secure_agg.py:300",
-                      counts["rotate_quantize_prf"], ms, plain_ms, ops,
-                      nbytes, integer=True))
+    k4 = _entry("rotate_quantize_prf",
+                "src/repro_torch/kernels/csrc/rotate_quantize_prf.cu",
+                "src/repro/kernels/secure_agg.py:300",
+                counts["rotate_quantize_prf"], ms, plain_ms, ops, nbytes,
+                integer=True)
+    k4["even_u_offset_ms"] = even_ms
+    log(f"  rotate_quantize_prf at u_offset 0: {even_ms:.3f} ms")
+    out.append(k4)
     del x, got
     torch.cuda.empty_cache()
 

@@ -44,7 +44,7 @@ def learn_zscore(feature_sample: torch.Tensor, lo: float, hi: float, rng,
     mean = bitagg.estimate_mean(mean_bits, lo, hi, flip_prob)
     var = bitagg.estimate_variance(mean_bits=mean_bits, sq_bits=sq_bits,
                                    lo=lo, hi=hi, flip_prob=flip_prob)
-    std = torch.sqrt(torch.clamp(var, min=1e-6))
+    std = prf.sqrt_f32(torch.clamp(var, min=1e-6))
     return NormalizationFactors("zscore", mean.cpu().numpy(),
                                 std.cpu().numpy())
 

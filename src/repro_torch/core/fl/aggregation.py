@@ -194,7 +194,7 @@ def client_sq_norms(stacked: Sequence[torch.Tensor]) -> torch.Tensor:
 def privatize_contribution(delta, spec: "AggregationSpec", rng) -> Tuple:
     """Clip one contribution by its whole-model norm (+ local noise under
     ``device`` placement).  Returns (delta, pre_clip_norm, was_clipped)."""
-    nrm = torch.sqrt(client_sq_norms(
+    nrm = prf.sqrt_f32(client_sq_norms(
         [x.reshape(1, -1) for x in T.leaves(delta)])[0])
     scale = clip_scales(nrm, spec.clip_norm)
     delta = T.tree_map(lambda x: (x.to(torch.float32) * scale).to(x.dtype),
@@ -465,7 +465,7 @@ def encode_plan_flat(xs: Sequence[torch.Tensor], weight, slot: int,
     int32 rows, pre-clip norm, was_clipped).
     """
     dev = xs[0].device
-    nrm = torch.sqrt(plan_sq_norms(plan, xs))
+    nrm = prf.sqrt_f32(plan_sq_norms(plan, xs))
     clip_scale = clip_scales(nrm, spec.clip_norm)
     weight = torch.as_tensor(weight, dtype=torch.float32, device=dev)
     u_words = prf.fold_in(rng, 2)
@@ -612,7 +612,7 @@ def encode_and_sum_rows(buf: torch.Tensor, weights: torch.Tensor, uniforms,
     B, D = buf.shape
     if row_sq is None:
         row_sq = kdp.sq_norms(buf.to(torch.float32).contiguous())
-    nrm = torch.sqrt(row_sq)
+    nrm = prf.sqrt_f32(row_sq)
     clip_scale = clip_scales(nrm, spec.clip_norm)
     was_clipped = (clip_scale < 1.0).to(torch.float32)
     row_w = weights * clip_scale

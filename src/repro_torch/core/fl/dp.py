@@ -22,7 +22,7 @@ def global_norm(tree) -> torch.Tensor:
     for x in T.leaves(tree):
         s = torch.sum(torch.square(x.to(torch.float32)))
         sq = s if sq is None else sq + s
-    return torch.sqrt(sq)
+    return prf.sqrt_f32(sq)
 
 
 def clip_update(update, clip_norm: float) -> Tuple:

@@ -231,7 +231,7 @@ def build_round_step(loss_fn: Callable, fl_cfg, *, cohort_size: int,
                 losses = torch.stack(losses)
                 sp.fence(stacked)
             with span("round.privatize") as sp:
-                nrm = torch.sqrt(agg.client_sq_norms(stacked))
+                nrm = prf.sqrt_f32(agg.client_sq_norms(stacked))
                 scale = agg.clip_scales(nrm, spec.clip_norm)
                 was_clipped = (scale < 1.0).to(f32)
                 if spec.dev_noise > 0.0:

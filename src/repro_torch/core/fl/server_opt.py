@@ -13,6 +13,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 import torch
 
 from repro_torch import tree as T
+from repro_torch.kernels import prf
 
 
 class ServerOpt(NamedTuple):
@@ -75,7 +76,7 @@ def build_server_opt(fl_cfg) -> ServerOpt:
             c2 = 1 - torch.pow(torch.full_like(tf, b2), tf)
             new = T.tree_map(
                 lambda p, m_, v_: (_f32(p) + lr * (m_ / c1) /
-                                   (torch.sqrt(v_ / c2) + eps)).to(p.dtype),
+                                   (prf.sqrt_f32(v_ / c2) + eps)).to(p.dtype),
                 params, m, v)
             return new, {"step": t, "m": m, "v": v}
 
@@ -88,7 +89,7 @@ def build_server_opt(fl_cfg) -> ServerOpt:
                            state["v"], delta)
             new = T.tree_map(
                 lambda p, d, v_: (_f32(p) + lr * _f32(d) /
-                                  (torch.sqrt(v_) + eps)).to(p.dtype),
+                                  (prf.sqrt_f32(v_) + eps)).to(p.dtype),
                 params, delta, v)
             return new, {"step": state["step"] + 1, "v": v}
 

@@ -42,7 +42,7 @@ template <int NB, bool ODD_U>
 __global__ void __launch_bounds__(kThreads) quantize_mask_prf_kernel(
     const float* __restrict__ x, uint32_t* __restrict__ out, int64_t n,
     float scale, uint32_t k0, uint32_t k1, uint32_t u0, uint32_t u1, int slot,
-    uint32_t u_off, int num_slots, int degree,
+    uint64_t u_off, int num_slots, int degree,
     const int32_t* __restrict__ table, int table_width, int count, int vec) {
   extern __shared__ uint32_t smem[];
   uint32_t* pk0 = smem;
@@ -81,8 +81,10 @@ __global__ void __launch_bounds__(kThreads) quantize_mask_prf_kernel(
       for (int k = 0; k < 4; ++k) xv[k] = (i + k < n) ? x[i + k] : 0.0f;
     }
     const uint32_t e = static_cast<uint32_t>(i);
-    // uniform words at stream positions u_off + e .. u_off + e + 3
-    const uint32_t uc = (u_off + e) >> 1;
+    // uniform words at stream positions u_off + e .. u_off + e + 3, taken in
+    // 64 bits (the counter is their half mod 2^32), as the plain version
+    // and the host streams take them
+    const uint32_t uc = static_cast<uint32_t>((u_off + e) >> 1);
     uint32_t uw[4];
     const uint2 a = repro_prf::stream_pair_at(u0, u1, uc,
                                               repro_prf::kTagUniform);
@@ -126,7 +128,7 @@ __global__ void __launch_bounds__(kThreads) quantize_mask_prf_kernel(
 
 template <int NB, bool ODD_U>
 int launch(const float* x, uint32_t* out, int64_t n, float scale, uint32_t k0,
-           uint32_t k1, uint32_t u0, uint32_t u1, int slot, uint32_t u_off,
+           uint32_t k1, uint32_t u0, uint32_t u1, int slot, uint64_t u_off,
            int num_slots, int degree, const int32_t* table, int table_width,
            int count, int vec, cudaStream_t stream) {
   const size_t smem = (3 * static_cast<size_t>(count) + 1) * sizeof(uint32_t);
@@ -146,7 +148,7 @@ int launch(const float* x, uint32_t* out, int64_t n, float scale, uint32_t k0,
 // launch (0 = launched).
 extern "C" int quantize_mask_prf_launch(
     const float* x, uint32_t* out, int64_t n, float scale, uint32_t k0,
-    uint32_t k1, uint32_t u0, uint32_t u1, int32_t slot, uint32_t u_off,
+    uint32_t k1, uint32_t u0, uint32_t u1, int32_t slot, uint64_t u_off,
     int32_t num_slots, int32_t degree, const int32_t* table,
     int32_t table_width, int32_t vec, void* stream) {
   if (n <= 0) return 0;

@@ -27,6 +27,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import prf
+
 # K3 splits a row over this many blocks in all (partial sums), at most
 TARGET_BLOCKS = 132 * 8
 MAX_ROW_BLOCKS = 4096
@@ -173,5 +175,5 @@ def scale_accum(x: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
 def dp_clip_reduce(deltas: torch.Tensor, clip_norm: float) -> torch.Tensor:
     """(C, D) client deltas -> (D,) sum of the per-client-clipped rows:
     K3, the clip scales, K8."""
-    nrm = torch.sqrt(sq_norms(deltas))
+    nrm = prf.sqrt_f32(sq_norms(deltas))
     return scale_accum(deltas, clip_scales(nrm, clip_norm))

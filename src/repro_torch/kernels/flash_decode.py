@@ -16,25 +16,30 @@ window``; invalid scores are ``-1e30`` (not ``-inf``), so a row with no
 valid slot averages ``v`` over the cache where ``repro.kernels.ref`` gives
 NaN; the denominator is guarded by ``max(l, 1e-30)``.  Unlike the Pallas
 wrapper, any cache depth ``W`` is accepted (the kernel masks the ragged
-tail of its last tile).
+tail of its last tile).  One call is one kernel launch: the kernel merges
+its W splits itself.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 NEG = -1e30
-# the kernel's geometry (csrc/flash_decode.cu): 4 warps of 32-slot tiles,
-# up to 8 query rows of one kv-head per block
-TILE = 32
+# the kernel's geometry (csrc/flash_decode.cu): 4 warps, a ring of 16-slot
+# K/V tiles, up to 8 query rows of one kv-head per CTA, at most 256 splits
+# (which bounds the partials a launch allocates)
+TILE = 16
 WARPS = 4
 MAX_ROWS = 8
+MAX_SPLITS = 256
 HEAD_DIMS = (32, 64, 128, 256)
-# W is split so that a launch has about this many blocks: 64 per SM of an
-# H100, so the last wave of blocks is a small part of the run (about 5 fit
-# an SM at once; tools/flash_decode_splits.py measures the choice)
-TARGET_BLOCKS = 64 * 132
+# an H100 SXM's SMs, and the kernel's CTAs resident on one at hd <= 128
+# (128 threads of up to 128 registers): the defaults of :func:`splits`; a
+# launch takes both from the card
+SMS = 132
+CTAS_PER_SM = 4
 
 
 def _counted(fn):
@@ -71,31 +76,88 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, H, hd)
 
 
-def splits(B: int, KV: int, rep: int, W: int):
-    """(number of W splits, slots per split) of a launch: enough blocks for
-    ``TARGET_BLOCKS``, at least one 32-slot tile per warp of each."""
-    tiles = -(-W // TILE)
-    rows = B * KV * -(-rep // MAX_ROWS)
-    want = max(1, min(-(-tiles // WARPS), -(-TARGET_BLOCKS // rows)))
-    per = -(-tiles // want)
-    return -(-tiles // per), per * TILE
+def row_groups(B: int, KV: int, rep: int) -> int:
+    """CTA rows of a launch, one per (b, kv-head, group of up to 8 query
+    rows): also the length of its split-merge ticket buffer."""
+    return B * KV * -(-rep // MAX_ROWS)
 
 
-_SIGNATURE = [ctypes.c_void_p] * 7 + [ctypes.c_int32] * 10 + [ctypes.c_void_p]
-_launch_fn = None
+def splits(B: int, KV: int, rep: int, W: int, *, sms: int = SMS,
+           per_sm: int = CTAS_PER_SM) -> int:
+    """The number of near-equal W ranges (splits) of a launch.
+
+    The grid is ``row_groups x splits`` CTAs.  The least split count that
+    makes it a whole number of waves (``sms x per_sm`` CTAs), when each
+    split keeps at least a tile of slots and the merge takes that many;
+    else at most one wave.
+    """
+    rows = row_groups(B, KV, rep)
+    wave = sms * per_sm
+    cap = min(-(-W // TILE), MAX_SPLITS)
+    whole = wave // math.gcd(rows, wave)
+    if whole <= cap:
+        return whole
+    return max(1, min(cap, wave // rows))
+
+
+def split_range(W: int, nsplit: int, i: int):
+    """Slots ``[s0, s1)`` of split ``i``, as the kernel computes them."""
+    return i * W // nsplit, (i + 1) * W // nsplit
+
+
+_SIGNATURE = [ctypes.c_void_p] * 8 + [ctypes.c_int32] * 9 + [ctypes.c_void_p]
+# what a launch needs once per process: the bound library functions, and
+# per device its SM count, the kernel's occupancy per (hd, K/V dtype) and the
+# zeroed ticket buffer (each launch leaves it zero; calls queue on one stream)
+_bound = {}
 
 
 def _launcher():
     """The library's launch function, bound once (the serve path calls the
     wrapper once per layer per decoded token)."""
-    global _launch_fn
-    if _launch_fn is None:
+    fn = _bound.get("launch")
+    if fn is None:
         from repro_torch.kernels import _build
-        fn = _build.load("flash_decode").flash_decode_launch
+        lib = _build.load("flash_decode")
+        fn = _bound["launch"] = lib.flash_decode_launch
         fn.argtypes = _SIGNATURE
         fn.restype = ctypes.c_int
-        _launch_fn = fn
-    return _launch_fn
+        occ = _bound["occupancy"] = lib.flash_decode_ctas_per_sm
+        occ.argtypes = [ctypes.c_int32, ctypes.c_int32]
+        occ.restype = ctypes.c_int
+    return fn
+
+
+def ctas_per_sm(device, hd: int, bf16: bool) -> int:
+    """The kernel's CTAs resident on one SM of ``device`` for (hd, K/V
+    dtype), from the CUDA occupancy calculator."""
+    key = ("occupancy", torch.device(device).index, hd, bool(bf16))
+    if key not in _bound:
+        _launcher()
+        with torch.cuda.device(device):
+            n = _bound["occupancy"](hd, int(bool(bf16)))
+        if n <= 0:
+            raise RuntimeError(f"flash_decode occupancy query failed: CUDA "
+                               f"error {-n}")
+        _bound[key] = n
+    return _bound[key]
+
+
+def _sms(device) -> int:
+    key = ("sms", torch.device(device).index)
+    if key not in _bound:
+        _bound[key] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _bound[key]
+
+
+def _tickets(device, n: int) -> torch.Tensor:
+    key = ("tickets", torch.device(device).index)
+    buf = _bound.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _bound[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                        device=device)
+    return buf
 
 
 def _check(t: torch.Tensor, what: str, dtypes, shape) -> None:
@@ -135,20 +197,25 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(v, "v", (k.dtype,), (B, W, KV, hd))
     _check(slot_pos, "slot_pos", (torch.int32,), (W,))
     rep = H // KV
-    nsplit, chunk = splits(B, KV, rep, W)
-    if B * KV * -(-rep // MAX_ROWS) > 65535:
+    rows = row_groups(B, KV, rep)
+    if rows > 65535:
         raise ValueError(f"flash_decode: batch {B} x {KV} kv heads exceeds "
                          "the kernel's grid")
+    bf16 = k.dtype == torch.bfloat16
+    launch = _launcher()
+    nsplit = splits(B, KV, rep, W, sms=_sms(q.device),
+                    per_sm=ctas_per_sm(q.device, hd, bf16))
     out = torch.empty_like(q)
     part_acc = torch.empty((B, H, nsplit, hd), dtype=torch.float32,
                            device=q.device)
     part_ml = torch.empty((B, H, nsplit, 2), dtype=torch.float32,
                           device=q.device)
-    status = _launcher()(
+    status = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), slot_pos.data_ptr(),
-        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), B, H, KV, W,
-        hd, int(k.dtype == torch.bfloat16), int(pos), int(window), nsplit,
-        chunk, torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+        _tickets(q.device, rows).data_ptr(), B, H, KV, W, hd, int(bf16),
+        int(pos), int(window), nsplit,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if status != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{status}")

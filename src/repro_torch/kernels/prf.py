@@ -360,6 +360,29 @@ def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
     return r
 
 
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root of an f32 tensor, as XLA's
+    ``jnp.sqrt`` computes it.
+
+    torch's f32 ``sqrt`` on the CPU is not correctly rounded on every host.
+    The f64 root rounded once more to f32 is (f64 carries more than
+    2 * 24 + 2 bits, and a root of an f32 never sits that close to an f32
+    midpoint; ``tools/sqrt_rounding.py --exhaustive`` checks every f32), so
+    the CPU takes that, in tiles of ``TILE`` values.  CUDA's f32 ``sqrt`` is
+    IEEE round-to-nearest, so a CUDA tensor takes ``torch.sqrt`` as it is:
+    both give the same bits.
+    """
+    if x.dtype != torch.float32:
+        raise TypeError(f"sqrt_f32 takes f32, got {x.dtype}")
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    flat = x.reshape(-1)
+    out = torch.empty_like(flat)
+    for s in range(0, flat.numel(), TILE):
+        out[s:s + TILE] = torch.sqrt(flat[s:s + TILE].double())
+    return out.view(x.shape)
+
+
 def _div_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The correctly rounded f32 quotient: the f64 quotient of two f32s,
     rounded again to f32 (f64 carries more than 2 * 24 + 2 bits, so the
@@ -423,9 +446,7 @@ def erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
     w = -log1p_f32(x * -x)
     out = _horner(w - 2.5, _ERFINV_LT5) * x
     tail = (w >= 5.0).nonzero(as_tuple=True)
-    # sqrt in f64, rounded once more to f32, is the correctly rounded f32
-    # sqrt (torch's f32 CPU sqrt is not)
-    wt = torch.sqrt(w[tail].double()).float() - 3.0
+    wt = sqrt_f32(w[tail]) - 3.0
     out[tail] = _horner(wt, _ERFINV_GE5) * x[tail]
     return torch.where(x.abs() == 1.0, x * math.inf, out)
 

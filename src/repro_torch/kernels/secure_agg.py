@@ -320,12 +320,12 @@ def unpack_residues_plain(words: torch.Tensor, size: int,
 # CUDA launches
 # ---------------------------------------------------------------------------
 _c_void_p, _c_i64, _c_i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
-_c_u32, _c_f32 = ctypes.c_uint32, ctypes.c_float
+_c_u32, _c_u64, _c_f32 = ctypes.c_uint32, ctypes.c_uint64, ctypes.c_float
 
 _SIGNATURES = {
     "quantize_mask_prf": [
         _c_void_p, _c_void_p, _c_i64, _c_f32, _c_u32, _c_u32, _c_u32,
-        _c_u32, _c_i32, _c_u32, _c_i32, _c_i32, _c_void_p, _c_i32, _c_i32,
+        _c_u32, _c_i32, _c_u64, _c_i32, _c_i32, _c_void_p, _c_i32, _c_i32,
         _c_void_p],
     "weighted_quantize_accum": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_i64,
@@ -333,7 +333,7 @@ _SIGNATURES = {
         _c_void_p, _c_i32, _c_i32, _c_void_p],
     "rotate_quantize_prf": [
         _c_void_p, _c_void_p, _c_i64, _c_i64, _c_f32, _c_u32, _c_u32,
-        _c_u32, _c_u32, _c_u32, _c_void_p],
+        _c_u32, _c_u32, _c_u64, _c_i32, _c_void_p],
     "pack_residues": [_c_void_p, _c_void_p, _c_i64, _c_i64, _c_i32,
                       _c_void_p],
     "unpack_residues": [_c_void_p, _c_void_p, _c_i64, _c_i32, _c_void_p],
@@ -391,6 +391,13 @@ def _vec(D: int, *ts: torch.Tensor) -> int:
     return int(D % 4 == 0 and _aligned(*ts))
 
 
+def _check_u_offset(u_offset: int) -> None:
+    """The kernels take the uniform stream offset as a uint64 and form the
+    positions ``u_offset + e`` in 64 bits, as the plain versions do."""
+    if not 0 <= int(u_offset) < 1 << 63:
+        raise ValueError(f"u_offset {u_offset} outside [0, 2^63)")
+
+
 def _raise_on(status: int, name: str) -> None:
     if status != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error "
@@ -421,12 +428,13 @@ def quantize_mask_prf(x: torch.Tensor, scale: float, slot: int,
     if count > MAX_KERNEL_NEIGHBORS:
         raise ValueError(f"{count} mask neighbours exceed the kernel's "
                          f"{MAX_KERNEL_NEIGHBORS}")
+    _check_u_offset(u_offset)
     k0, k1 = prf.key_words(session.key_words)
     u0, u1 = prf.key_words(uniform_key_words)
     out = torch.empty_like(x, dtype=torch.int32)
     status = _launcher("quantize_mask_prf")(
         x.data_ptr(), out.data_ptr(), x.numel(), float(scale), k0, k1, u0,
-        u1, int(slot), int(u_offset) & prf.M32, session.num_slots,
+        u1, int(slot), int(u_offset), session.num_slots,
         session.degree, None if nb is None else nb.data_ptr(), width,
         _aligned(x, out), torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(status, "quantize_mask_prf")
@@ -518,12 +526,16 @@ def rotate_quantize_prf(x: torch.Tensor, scale: float, op_key_words,
     _check_cuda(x, "x", torch.float32, 1)
     (D,) = x.shape
     full = -(-D // comp.SKETCH_BLOCK) * comp.SKETCH_BLOCK
+    if full > 1 << 32:
+        raise ValueError(f"rotate_quantize_prf takes at most 2^32 operator "
+                         f"positions, got D={D}")
+    _check_u_offset(u_offset)
     o0, o1 = prf.key_words(op_key_words)
     u0, u1 = prf.key_words(uniform_key_words)
     out = torch.empty((full,), dtype=torch.int32, device=x.device)
     status = _launcher("rotate_quantize_prf")(
         x.data_ptr(), out.data_ptr(), D, full, comp.sketch_multiplier(scale),
-        o0, o1, u0, u1, int(u_offset) & prf.M32,
+        o0, o1, u0, u1, int(u_offset), _aligned(x),
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(status, "rotate_quantize_prf")
     rotate_quantize_prf.launches += 1

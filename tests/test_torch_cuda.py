@@ -54,6 +54,11 @@ def test_cuda_kernels_match_plain_versions(cuda):
         got = ksa.quantize_mask_prf(x, SCALE, 2, UW, s, u_offset=9)
         want = ksa.quantize_mask_prf_plain(x, SCALE, 2, UW, s, u_offset=9)
         assert torch.equal(got, want)
+    # uniform stream positions past 2^32 (64-bit, as the plain version)
+    s = _session(8, 0)
+    got = ksa.quantize_mask_prf(x, SCALE, 2, UW, s, u_offset=(1 << 32) - 3)
+    assert torch.equal(got, ksa.quantize_mask_prf_plain(
+        x, SCALE, 2, UW, s, u_offset=(1 << 32) - 3))
     xs = torch.randn(8, 5001, generator=g, device=cuda) * 0.01
     ws = torch.rand(8, generator=g, device=cuda)
     us = prf.uniform_block(1, 2, 8 * 5001, device=cuda).reshape(8, 5001)
@@ -64,7 +69,8 @@ def test_cuda_kernels_match_plain_versions(cuda):
         assert torch.equal(got, want)
     # K4 at ragged and whole Hadamard blocks, nonzero uniform offsets
     for D, scale, u_off in ((1, SCALE, 0), (511, 131067.5, 4097),
-                            (100_003, 16777215.6875, 1 << 20)):
+                            (100_003, 16777215.6875, 1 << 20),
+                            (4097, SCALE, (1 << 32) - 3)):
         x = torch.randn(D, generator=g, device=cuda) * 0.01
         got = ksa.rotate_quantize_prf(x, scale, (0x1234, 0xCB01), UW,
                                       u_offset=u_off)
@@ -82,10 +88,10 @@ def test_cuda_kernels_match_plain_versions(cuda):
                                                            bits))
         assert torch.equal(back, q)
     assert ksa.counts() == {
-        "quantize_mask_prf": {"launches": 3, "plain_calls": 0},
+        "quantize_mask_prf": {"launches": 4, "plain_calls": 0},
         "weighted_quantize_accum": {"launches": 1, "plain_calls": 0},
         ksa.PRF_LANE: {"launches": 2, "plain_calls": 0},
-        "rotate_quantize_prf": {"launches": 3, "plain_calls": 0},
+        "rotate_quantize_prf": {"launches": 4, "plain_calls": 0},
         "pack_residues": {"launches": 3, "plain_calls": 0},
         "unpack_residues": {"launches": 3, "plain_calls": 0},
         "quantize_mask": {"launches": 0, "plain_calls": 0},

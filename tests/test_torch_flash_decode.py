@@ -132,10 +132,43 @@ def test_flash_decode_no_valid_slot_follows_the_pallas_mask():
     (8, 2, 6, 2080), (128, 2, 6, 32768), (1, 1, 10, 7), (2, 8, 2, 1),
     (4, 32, 1, 5000), (1, 2, 12, 100000)])
 def test_flash_decode_splits_cover_the_cache(B, KV, rep, W):
-    nsplit, chunk = kfd.splits(B, KV, rep, W)
-    assert chunk % kfd.TILE == 0
-    assert (nsplit - 1) * chunk < W <= nsplit * chunk  # no empty split
+    nsplit = kfd.splits(B, KV, rep, W)
+    assert 1 <= nsplit <= min(W, kfd.MAX_SPLITS)
+    # near-equal ranges, as the kernel cuts them: no empty split, no gap
+    ranges = [kfd.split_range(W, nsplit, i) for i in range(nsplit)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == W
+    assert all(a < b for a, b in ranges)
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(nsplit - 1))
+    assert max(b - a for a, b in ranges) - min(b - a for a, b in ranges) <= 1
+    ctas = kfd.row_groups(B, KV, rep) * nsplit
+    wave = kfd.SMS * kfd.CTAS_PER_SM
     if (B, W) == (8, 2080):
-        assert (nsplit, chunk) == (17, 128)  # the serve path: 272 blocks
+        # the serve path: 33 splits of 63-64 slots, 528 CTAs = one wave
+        assert nsplit == 33 and ctas == wave
     if (B, W) == (128, 32768):
-        assert (nsplit, chunk) == (32, 1024)  # decode_32k: 8192 blocks
+        # decode_32k: 33 splits of 992-993 slots, 8448 CTAs = 16 waves
+        assert nsplit == 33 and ctas == 16 * wave
+    if ctas % wave:
+        # no whole number of waves fits: at most one wave, or one split per
+        # tile of the cache
+        assert ctas <= wave or nsplit == min(-(-W // kfd.TILE),
+                                             kfd.MAX_SPLITS)
+
+
+@pytest.mark.parametrize("sms,per_sm", [(132, 4), (132, 2), (114, 4)])
+def test_flash_decode_splits_follow_the_card(sms, per_sm):
+    """The split count is taken from the card's SMs and the kernel's
+    occupancy: the grid stays a whole number of waves on each."""
+    for B, KV, rep, W in ((8, 2, 6, 2080), (128, 2, 6, 32768)):
+        nsplit = kfd.splits(B, KV, rep, W, sms=sms, per_sm=per_sm)
+        assert kfd.row_groups(B, KV, rep) * nsplit % (sms * per_sm) == 0
+        assert nsplit <= min(-(-W // kfd.TILE), kfd.MAX_SPLITS)
+
+
+@pytest.mark.parametrize("B,KV,rep,rows", [
+    (8, 2, 6, 16), (128, 2, 6, 256), (1, 1, 10, 2), (3, 8, 2, 24),
+    (4, 32, 1, 128), (1, 2, 12, 4), (2, 1, 16, 4)])
+def test_flash_decode_row_groups_size_the_ticket_buffer(B, KV, rep, rows):
+    """One CTA row (and one split-merge ticket) per batch row, kv head and
+    group of up to 8 query rows."""
+    assert kfd.row_groups(B, KV, rep) == rows
