@@ -69,12 +69,31 @@ Phases (each prints its seconds):
      ``threshold_cdf`` (2^20 devices x 32 features x 128 thresholds, flip
      0.1, 16 device tiles; a monotone CDF within 0.01 of the values'
      empirical CDF), its time split into torch draws, K9 and the rest;
+  2f. the aggregation tier (``ShardedAsyncServer``, run right after 2b on
+     the same model): 4 leaves x 2 slots (the flat buffer of 8), each
+     session one arrival batch, ``client`` and ``tee_stream`` in both
+     topologies and the batched ``tee`` tree, each ``torch.equal`` to the
+     flat ``AsyncServer`` on the same deltas and keys (full session +
+     recovered 6-of-8 flush); a bits-16 ``client`` tree (the 19-bit wire,
+     K5) with 2 of 8 clients dropped and leaf 1 dead mid-ingest, equal to
+     the flat server over the 4 survivors; ``sketch`` at 0.2 equal to the
+     compressed flat server; the push ms of a batch of 8, full and
+     recovering flush ms beside the flat server's, peak device memory;
+     ``examples/observability_smoke``'s twin at these widths (reconcile
+     clean, the replay's trace and params equal); ``simulate`` sync vs
+     async; ``simulate_training("async", mask_mode="client",
+     faults=FaultPlan(...))`` on the classifier (finite losses, the final
+     loss below the first decile's); the sharded round on the classifier
+     (4 leaves; masked == unmasked, within 1e-6 of the single-host round);
   3. the exact kernel launch counts of each path (and zero plain-version
      calls): K10 once per layer per decode step of each serve run; per
      training round at cohort 4 (one chunk of 4 clients, 14 leaves) K3 14,
      K6 56 and K7 14 at bits 32, K3 14 and K8 14 at bits 0; K9 once per
      device tile of each CDF vote (2 in the example, 1 in the pipeline, 16
-     in the fleet query);
+     in the fleet query); the tier's runs from their shapes and ledgers
+     (K1 per chunk of each masked encode, K5 per chunk of each packed
+     encode or landing, K2's PRF lane per chunk per leaf per flush, K4 per
+     chunk of each sketch push, K3/K6/K7 per leaf / client leaf / leaf);
   4. the card's name and power limit, each kernel's time at the main path's
      largest shape beside its bound (bytes over 3.35 TB/s, float operations
      over 67 T/s, integer instructions over the issue rate SMs x 128 x the
@@ -142,6 +161,9 @@ EXPECT_CHUNKS = 5
 EXPECT_PARAMS = 326_970_880
 DELTA_SCALE = 2e-5  # per-element std: a delta's L2 norm is ~0.36 < clip 1.0
 SKETCH_RATE = 0.2  # the builders' rate in results/compression_tradeoff.csv
+# phase 2f: the aggregation tier over the same model, 4 leaves x 2 slots
+# (the flat server's buffer of 8)
+TIER_LEAVES, TIER_LEAF_BUFFER = 4, 2
 EMBED = 151_936 * 1536  # the embedding chunk, the main path's largest
 # phase 2c: the serve CLI at qwen2-1.5b's full width and depth
 SERVE_ARGS = ["--arch", "qwen2-1.5b", "--full", "--batch", "8",
@@ -848,6 +870,381 @@ def compressed_path(torch, mp: MainPath) -> None:
         f"{ebytes / raw:.3f} of the raw f32 wire; moved {moved:.3g}")
     del got
     report_timings(mp)
+
+
+# ---------------------------------------------------------------------------
+# phase 2f: the aggregation tier at full width
+# ---------------------------------------------------------------------------
+def stacked_deltas(torch, mp, idx):
+    """Deltas ``idx`` of ``mp`` as one (K,)-stacked tree, filled in place."""
+    from repro_torch import tree as T
+    out = T.tree_map(lambda p: torch.empty((len(idx),) + tuple(p.shape),
+                                           dtype=p.dtype, device=DEVICE),
+                     mp.params)
+    for j, i in enumerate(idx):
+        d = mp.delta(i)
+        T.tree_map(lambda o, x: o[j].copy_(x), out, d)
+        del d
+    return out
+
+
+def _tier_fl(bits: int, fl_kw=None):
+    from repro_torch.configs.base import FLConfig
+    return FLConfig(cohort_size=BUFFER, clip_norm=1.0, noise_multiplier=0.0,
+                    secure_agg_bits=bits, param_chunk_elems=CHUNK_ELEMS,
+                    **(fl_kw or {}))
+
+
+def _tier_server(mp, mode, two_level, bits=32, fl_kw=None):
+    from repro_torch.core import telemetry as tele
+    from repro_torch.core.fl.hierarchy import ShardedAsyncServer
+    tel = tele.Telemetry(record_spans=True, fence=True)
+    srv = ShardedAsyncServer(mp.params, _tier_fl(bits, fl_kw),
+                             num_leaves=TIER_LEAVES,
+                             leaf_buffer=TIER_LEAF_BUFFER,
+                             staleness_mode="constant", mask_mode=mode,
+                             two_level=two_level, telemetry=tel,
+                             device=DEVICE)
+    check(srv.plan.num_chunks == EXPECT_CHUNKS and srv.buffer_size == BUFFER,
+          f"tier plan {srv.plan.num_chunks} chunks, {srv.buffer_size} slots")
+    return srv, tel
+
+
+def _land(srv, batch, version, slots):
+    """One arrival batch: encoded by the clients and landed (client), or
+    ingested raw (the other modes)."""
+    if srv.mask_mode == "client":
+        cps = srv.encode_push(batch, version, slot=list(slots))
+        check(srv.push_encoded(cps) == len(cps), "push_encoded refused")
+    else:
+        srv.push(batch, version, slots=list(slots))
+
+
+def tier_run(torch, mp, mode, two_level, bits=32, fl_kw=None):
+    """MainPath.run's sessions on the 4 x 2 tier, each session one arrival
+    batch: session 0 all 8 slots (applies on arrival), session 1 slots 3
+    and 6 drop out and ``flush()`` recovers them.  Returns (params, spans
+    by name: "push" = the batch's ingest (client: encode + land), "decode",
+    "decode/recovery")."""
+    srv, tel = _tier_server(mp, mode, two_level, bits, fl_kw)
+    sessions = [(range(BUFFER), range(BUFFER)),
+                (range(BUFFER, BUFFER + 6), (0, 1, 2, 4, 5, 7))]
+    for version, (idx, slots) in enumerate(sessions):
+        batch = stacked_deltas(torch, mp, list(idx))
+        sync(torch)
+        _land(srv, batch, version, slots)
+        del batch
+    check(srv.flush(), "tier flush abstained")
+    check(srv.version == 2, f"tier at version {srv.version}")
+    sync(torch)
+    spans = {}
+    for sp in tel.spans:
+        key = sp.name
+        if sp.name in ("encode_push", "push_encoded", "ingest"):
+            key = "push"
+        elif sp.name == "decode" and sp.labels.get("recovery"):
+            key = "decode/recovery"
+        spans.setdefault(key, []).append(sp.dur_ns / 1e6)
+    # client: encode + land of one batch are two spans; pair them up
+    if mode == "client":
+        p = spans["push"]
+        spans["push"] = [p[i] + p[i + 1] for i in range(0, len(p), 2)]
+    params = srv.params
+    del srv
+    empty_cache(torch)
+    return params, spans
+
+
+def _flat_session_ms(mp, label, bits):
+    """The flat server's numbers from MainPath.run: 8 pushes of session 0
+    (median push x 8), its flush, the recovering flush."""
+    sp = mp.timings[(label, bits)]
+    push = sum(statistics.median(sp[k]) for k in
+               ("encode_push", "push_encoded", "push") if k in sp)
+    return BUFFER * push, sp["decode"][0], sp["decode/recovery"][0]
+
+
+def _peak_gib(torch, reset: bool = False) -> float:
+    """Peak allocated device memory since the last reset (then reset)."""
+    if DEVICE != "cuda":
+        return float("nan")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return peak
+
+
+def tier_path(torch, mp, counts: dict, smi: str) -> dict:
+    """Phase 2f.  ``counts[run]`` gets the kernel counts of each run; returns
+    the launches each run must show (nonzero kernels only)."""
+    from repro_torch import tree as T
+    from repro_torch.kernels import secure_agg as ksa
+    C = EXPECT_CHUNKS
+    pushes = BUFFER + 6
+    want = {}
+    _peak_gib(torch, reset=True)
+    peaks = {}
+    rows = []
+
+    # 1. client and tee_stream, flat and tree, vs the flat AsyncServer
+    #    (client == tee_stream == streamed off bit for bit: phase 2)
+    reset_counts()
+    ref = mp.run("client", 32)
+    counts["tier-flat-ref"] = kernel_counts()
+    peaks["flat client"] = _peak_gib(torch, reset=True)
+    want["tier-flat-ref"] = {"quantize_mask_prf": pushes * C}
+    flat_ms = _flat_session_ms(mp, "client", 32)
+    rows.append(("flat AsyncServer client",) + flat_ms)
+    for mode in ("client", "tee_stream"):
+        for two_level in (False, True):
+            topo = "tree" if two_level else "flat"
+            reset_counts()
+            got, spans = tier_run(torch, mp, mode, two_level)
+            counts[f"tier-{mode}-{topo}"] = kernel_counts()
+            peaks[f"{mode}-{topo}"] = _peak_gib(torch, reset=True)
+            want[f"tier-{mode}-{topo}"] = {"quantize_mask_prf": pushes * C}
+            check(trees_equal(torch, got, ref),
+                  f"tier {mode}/{topo} != the flat AsyncServer")
+            log(f"  tier {mode}, {topo} topology ({TIER_LEAVES} leaves x "
+                f"{TIER_LEAF_BUFFER}): params bit-equal to the flat "
+                f"AsyncServer at buffer {BUFFER} (full session + recovered "
+                "6-of-8 flush)")
+            rows.append((f"tier {mode} {topo}", spans["push"][0],
+                         spans["decode"][0], spans["decode/recovery"][0]))
+            del got
+    del ref
+
+    # 2. batched tee: the tree's per-leaf K2 PRF lanes vs the flat engine
+    reset_counts()
+    ref = mp.run("tee", 32)
+    peaks["flat tee"] = _peak_gib(torch, reset=True)
+    flat_ms = _flat_session_ms(mp, "tee", 32)
+    got, spans = tier_run(torch, mp, "tee", True)
+    counts["tier-tee"] = kernel_counts()
+    peaks["tee-tree"] = _peak_gib(torch, reset=True)
+    want["tier-tee"] = {ksa.PRF_LANE: 2 * C + 2 * TIER_LEAVES * C}
+    check(trees_equal(torch, got, ref), "tier tee/tree != flat tee")
+    log("  tier tee (batched), tree: params bit-equal to the flat tee "
+        "AsyncServer (full session + 6-of-8 flush)")
+    rows.append(("flat AsyncServer tee",) + flat_ms)
+    rows.append(("tier tee tree", spans["push"][0], spans["decode"][0],
+                 spans["decode/recovery"][0]))
+    del got, ref
+
+    # 3. client dropout + an ingest leaf death on the tree, at bits 16 (the
+    #    19-bit packed wire, K5): slots 1 and 6 never arrive, leaf 1 dies
+    #    holding slots 2 and 3, the flush recovers all of them
+    reset_counts()
+    srv, tel = _tier_server(mp, "client", True, bits=16)
+    _land(srv, stacked_deltas(torch, mp, [0, 2, 3]), 0, [0, 2, 3])
+    lost = srv.mark_leaf_dead(1)
+    check(lost == [2, 3] and srv.live_capacity == BUFFER - TIER_LEAF_BUFFER,
+          f"leaf death lost {lost}, live capacity {srv.live_capacity}")
+    _land(srv, stacked_deltas(torch, mp, [4, 5, 7]), 0, [4, 5, 7])
+    sync(torch)
+    t0 = time.perf_counter()
+    check(srv.flush(), "leaf-death flush abstained")
+    sync(torch)
+    death_ms = (time.perf_counter() - t0) * 1e3
+    got = srv.params
+    fm = dict(srv.fault_metrics)
+    del srv
+    from repro_torch.core.fl.async_fl import AsyncServer
+    flat = AsyncServer(mp.params, _tier_fl(16), buffer_size=BUFFER,
+                       staleness_mode="constant", mask_mode="client",
+                       device=DEVICE)
+    for s in (0, 4, 5, 7):
+        d = mp.delta(s)
+        check(flat.push_encoded(flat.encode_push(d, 0, slot=s)), "refused")
+        del d
+    check(flat.flush(), "survivor flush abstained")
+    counts["tier-leafdeath"] = kernel_counts()
+    peaks["leaf death + survivors"] = _peak_gib(torch, reset=True)
+    want["tier-leafdeath"] = {"quantize_mask_prf": 10 * C,
+                              "pack_residues": 10 * C,
+                              "unpack_residues": 10 * C}
+    check(trees_equal(torch, got, flat.params),
+          "tier after a leaf death != the flat server over the survivors")
+    check(fm["dead_leaves"] == 1 and fm["lost_contributions"] == 2,
+          f"fault metrics {fm}")
+    log(f"  tier client tree, bits 16: 2 of 8 clients dropped + leaf 1 dead "
+        f"mid-ingest (slots 2, 3 lost): recovering flush {death_ms:.1f} ms, "
+        "params bit-equal to the flat server over the 4 survivors")
+    del got, flat
+    empty_cache(torch)
+
+    # 4. the compressed tier: sketch@0.2 vs the compressed flat server
+    sketch = {"compress_mode": "sketch", "compress_rate": SKETCH_RATE}
+    reset_counts()
+    ref = mp.run("client", 32, sketch, tag="+sketch")
+    peaks["flat client+sketch"] = _peak_gib(torch, reset=True)
+    flat_ms = _flat_session_ms(mp, "client+sketch", 32)
+    got, spans = tier_run(torch, mp, "client", True, fl_kw=sketch)
+    counts["tier-sketch"] = kernel_counts()
+    peaks["client+sketch-tree"] = _peak_gib(torch, reset=True)
+    want["tier-sketch"] = {"rotate_quantize_prf": 2 * pushes * C}
+    check(trees_equal(torch, got, ref),
+          "compressed tier != the compressed flat server")
+    log(f"  tier client+sketch@{SKETCH_RATE}, tree: params bit-equal to the "
+        "compressed flat AsyncServer (full session + recovered 6-of-8)")
+    rows.append(("flat AsyncServer client+sketch",) + flat_ms)
+    rows.append(("tier client+sketch tree", spans["push"][0],
+                 spans["decode"][0], spans["decode/recovery"][0]))
+    del got, ref
+    mp.timings.clear()
+    for name, push_ms, flush_ms, rec_ms in rows:
+        log(f"  timing {name}: push of a batch of {BUFFER} {push_ms:.1f} ms; "
+            f"full flush {flush_ms:.1f} ms; recovering flush (2 of 8 "
+            f"dropped) {rec_ms:.1f} ms; {smi}")
+
+    # 5. the observability twin at these widths (noise off: the TEE draw of
+    #    3.3e8 normals would dominate every flush)
+    from repro_torch.core import obs
+    from repro_torch.examples import observability_smoke as smoke
+    reset_counts()
+    sess = {}
+    t0 = time.perf_counter()
+    rc = smoke.main(["--device", DEVICE, "--out",
+                     str(ROOT / "build" / "obs_smoke")],
+                    params=mp.params, delta=mp.delta,
+                    fl_kw={"param_chunk_elems": CHUNK_ELEMS,
+                           "noise_multiplier": 0.0}, session=sess)
+    obs_s = time.perf_counter() - t0
+    counts["tier-obs"] = kernel_counts()
+    peaks["observability twin"] = _peak_gib(torch, reset=True)
+    check(rc == 0, "observability_smoke: conservation problem")
+    for t, s in ((sess["tel"], sess["srv"]), (sess["tel2"], sess["srv2"])):
+        rep = obs.reconcile(t, applied_updates=s._applied_updates)
+        check(rep.problems == [], f"reconcile: {rep.problems}")
+    check(sess["inj"].plan.trace == sess["inj2"].plan.trace
+          and trees_equal(torch, sess["srv"].params, sess["srv2"].params),
+          "observability_smoke: the replay diverged")
+    check(sess["srv"].fault_metrics["dead_leaves"] >= 1, "no leaf died")
+    encodes = sum(1 for t in (sess["tel"], sess["tel2"]) for sp in t.spans
+                  if sp.name == "encode_push")
+    stored = sum(t.total("stored_contributions")
+                 for t in (sess["tel"], sess["tel2"]))
+    want["tier-obs"] = {"quantize_mask_prf": encodes * C,
+                        "pack_residues": encodes * C,
+                        "unpack_residues": int(stored) * C}
+    log(f"  observability_smoke at {mp.cfg.name} widths: {obs_s:.1f} s, "
+        f"reconcile clean, replay equal (trace and params), {encodes} "
+        f"encodes, {int(stored)} stored, "
+        f"totals {obs.reconcile(sess['tel']).totals}")
+    del sess
+    empty_cache(torch)
+
+    # 6. the fleet simulators: numpy simulate, simulate_training on the card
+    from repro_torch.configs import mlp as mlp_cfg
+    from repro_torch.core import telemetry as tele
+    from repro_torch.core.fl import async_fl
+    from repro_torch.core.fl.faults import FaultPlan, FaultSpec
+    from repro_torch.kernels import prf
+    from repro_torch.models.model import build_mlp_classifier
+    kw = dict(population=20_000, cohort=128, target_updates=12_800,
+              model_bytes=4e6, seed=7, dropout=0.15)
+    s_sync, s_async = async_fl.simulate("sync", **kw), \
+        async_fl.simulate("async", **kw)
+    check(s_async.wall_clock < s_sync.wall_clock
+          and s_async.total_bytes < s_sync.total_bytes,
+          "simulate: async not faster than sync")
+    log(f"  simulate (examples/async_vs_sync fleet): sync "
+        f"{s_sync.wall_clock:.0f} s / async {s_async.wall_clock:.0f} s "
+        f"simulated ({s_sync.wall_clock / s_async.wall_clock:.2f}x), bytes "
+        f"{s_sync.total_bytes / s_async.total_bytes:.2f}x")
+    cfg = mlp_cfg.CONFIG
+    model = build_mlp_classifier(cfg, device=DEVICE)
+    key = prf.PRNGKey(9)
+    wstar = prf.normal(key, (cfg.num_features,), device=DEVICE)
+
+    def make_client_batch(seed, n):
+        x = prf.normal(prf.fold_in(key, seed), (n, 4, cfg.num_features),
+                       device=DEVICE)
+        return {"features": x, "label": (torch.einsum(
+            "cbf,f->cb", x, wstar) > 0).to(torch.float32)}
+
+    from repro_torch.configs.base import FLConfig
+    tel = tele.Telemetry(record_spans=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = async_fl.simulate_training(
+        "async", loss_fn=model.loss_fn, params=model.init(prf.PRNGKey(0)),
+        fl_cfg=FLConfig(local_steps=2, local_lr=0.4, clip_norm=1.0,
+                        server_lr=1.0),
+        make_client_batch=make_client_batch, target_updates=96, cohort=16,
+        population=64, buffer_size=8, seed=1, mask_mode="client",
+        faults=FaultPlan(FaultSpec(p_client_death=0.1, p_duplicate=0.2,
+                                   p_delay=0.2, delay_pushes=2,
+                                   straggler_frac=0.25, seed=4)),
+        telemetry=tel, device=DEVICE)
+    sim_s = time.perf_counter() - t0
+    counts["tier-simtrain"] = kernel_counts()
+    encodes = sum(1 for sp in tel.spans if sp.name == "encode_push")
+    want["tier-simtrain"] = {"quantize_mask_prf": encodes}
+    import math
+    first = statistics.mean(res.losses[:max(1, len(res.losses) // 10)])
+    check(all(math.isfinite(v) for v in res.losses)
+          and res.final_loss < first,
+          f"simulate_training: loss {first:.4f} -> {res.final_loss:.4f}")
+    log(f"  simulate_training(async, client, FaultPlan) on the classifier: "
+        f"{sim_s:.1f} s host, loss {first:.4f} -> {res.final_loss:.4f}, "
+        f"{res.sim.server_steps} server steps, fault metrics "
+        f"{res.fault_metrics}")
+
+    # 7. the sharded sync round (K3, K6, K7 per leaf): masked == unmasked
+    from repro_torch.core.fl import round as fl_round
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    params = model.init(prf.PRNGKey(0))
+    x = prf.normal(prf.fold_in(key, 1), (CLASSIFIER_COHORT, 2,
+                                         cfg.num_features), device=DEVICE)
+    batch = {"features": x, "label": (x.sum(-1) > 0).to(torch.float32)}
+    outs = {}
+    reset_counts()
+    for name, masked, leaves in (("sharded", False, TIER_LEAVES),
+                                 ("sharded-masked", True, TIER_LEAVES),
+                                 ("single-host", False, 0)):
+        fl = FLConfig(cohort_size=CLASSIFIER_COHORT, local_steps=1,
+                      local_lr=0.2, clip_norm=1.0, secure_agg_bits=32,
+                      secure_agg_masked=masked, secure_agg_degree=4)
+        if leaves:
+            step = fl_round.build_sharded_round_step(
+                model.loss_fn, fl, cohort_size=CLASSIFIER_COHORT,
+                num_leaves=leaves, device=DEVICE)
+        else:
+            step = fl_round.build_round_step(
+                model.loss_fn, fl, cohort_size=CLASSIFIER_COHORT,
+                device=DEVICE)
+        outs[name] = step(fl_round.init_fl_state(params, fl), dict(batch),
+                          prf.PRNGKey(3))[0].params
+    torch.use_deterministic_algorithms(False)
+    counts["tier-round"] = kernel_counts()
+    Lc = CLASSIFIER_LEAVES
+    want["tier-round"] = {"sq_norms": 2 * TIER_LEAVES * Lc + Lc,
+                          "quantize_mask": 3 * CLASSIFIER_COHORT * Lc,
+                          "dequantize": 3 * Lc}
+    check(trees_equal(torch, outs["sharded"], outs["sharded-masked"]),
+          "sharded round: masked != unmasked")
+    worst = max(float((a - b).abs().max()) for a, b in zip(
+        T.leaves(outs["sharded"]), T.leaves(outs["single-host"])))
+    check(worst <= 1e-6, f"sharded round vs single host: {worst:.3g}")
+    log(f"  sharded round ({TIER_LEAVES} leaves, cohort "
+        f"{CLASSIFIER_COHORT}): masked bit-equal to unmasked; vs the "
+        f"single-host round max |dparam| {worst:.3g}")
+    del outs, params, model
+    empty_cache(torch)
+
+    launched = {}
+    for run in want:
+        for k, v in counts[run].items():
+            launched[k] = launched.get(k, 0) + v["launches"]
+    log("  peak device memory by run (GiB): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in peaks.items()))
+    log(f"  phase 2f peak device memory {max(peaks.values()):.2f} GiB; "
+        "launches: "
+        + ", ".join(f"{k} {launched.get(k, 0)}" for k in (
+            "quantize_mask_prf", "weighted_quantize_accum", ksa.PRF_LANE,
+            "rotate_quantize_prf", "pack_residues", "unpack_residues")))
+    return want
 
 
 # ---------------------------------------------------------------------------
@@ -1748,6 +2145,9 @@ def main() -> int:
         reset_counts()
         compressed_path(torch, mp)
         counts["compressed"] = kernel_counts()
+
+    with Phase("phase 2f: the aggregation tier at full width"):
+        tier_want = tier_path(torch, mp, counts, smi)
         del mp
         torch.cuda.empty_cache()
 
@@ -1823,6 +2223,13 @@ def main() -> int:
             quantize_mask=pp.ROUNDS * pp.COHORT * Lc,
             dequantize=pp.ROUNDS * Lc)
         want["fa-fleet"] = dict(zero, bit_counts=FLEET_DEVICES // FLEET_TILE)
+        # the tier (phase 2f): counted per run from the runs' own shapes
+        # and ledgers (K1 once per chunk of every masked encode, K5 once
+        # per chunk of every packed encode / landing, K2's PRF lane once
+        # per chunk per leaf per tier flush, K4 per chunk of every sketch
+        # push, K3/K6/K7 per leaf / client leaf / leaf of each round)
+        for path, nonzero in tier_want.items():
+            want[path] = dict(zero, **nonzero)
         launches = {}
         for path, got in counts.items():
             runs = {k: v["launches"] for k, v in got.items()}

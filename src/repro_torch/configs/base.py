@@ -260,8 +260,8 @@ class FLConfig:
     # --- hierarchical aggregation tier (core/fl/hierarchy.py) ---
     # number of leaf aggregators and session slots per leaf.  0 = unset:
     # ShardedAsyncServer then requires explicit constructor arguments.
-    # num_leaves may EXCEED the visible device count — logical leaves are
-    # multiplexed onto the leaf mesh axis (launch.mesh.make_leaf_mesh).
+    # num_leaves may EXCEED the visible device count — every logical leaf
+    # lives on the one device, as the leading axis of the tier's buffer.
     num_leaves: int = 0
     leaf_buffer: int = 0
     # session topology of the tier: False = one global mask session sharded

@@ -18,13 +18,20 @@ on the device and shared by push and flush, and the buffers hold the
 operator-domain rows at the wire widths.  ``enclave_wire_bits`` quantizes
 the tee/tee_stream uplink onto a packed field wire.
 
-Not ported yet: the ``simulate``/``simulate_training`` simulators.
+The event-driven simulators follow the server: ``simulate`` (numpy only, so
+its :class:`SimResult` is the reference's exactly) and ``simulate_training``
+(the same numpy event loop and key schedule, driving the port's round and
+``AsyncServer``, optionally behind ``faults.FaultInjector``).
 """
 from __future__ import annotations
 
+import heapq
 import math
+import time
+from dataclasses import dataclass
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import device as _device
@@ -78,6 +85,24 @@ def staleness_weight(staleness, mode: str = "polynomial", a: float = 0.5,
 
 def _as_device_tree(tree, dev):
     return T.tree_map(lambda x: torch.as_tensor(x).to(dev), tree)
+
+
+def enclave_wire(plan, delta, key, bits: int, value_range: float, device):
+    """The client side of the enclave wire, then the enclave's ingest: per
+    chunk (keys ``split(key, num_chunks)``), stochastic quantize ->
+    canonical field residues -> packed words (what crosses the wire) ->
+    unpack -> dequantize.  Returns (the reconstructed delta tree, the
+    per-chunk words)."""
+    emod = (1 << bits) if bits < 32 else (1 << 32)
+    xs = plan.chunk_arrays(_as_device_tree(delta, device))
+    outs, words = [], []
+    for x, k in zip(xs, prf.split(key, len(xs))):
+        q = sa.quantize(x, bits, value_range, k)
+        w = sa.pack_residues(sa.to_field(q, emod), emod)
+        q2 = sa.recenter(sa.unpack_residues(w, x.shape[-1], emod), emod)
+        outs.append(sa.dequantize(q2, bits, value_range))
+        words.append(w)
+    return plan.unchunk(outs), tuple(words)
 
 
 # ---------------------------------------------------------------------------
@@ -359,22 +384,9 @@ class AsyncServer:
         return rows, w, nrm, clipped
 
     def _enclave_wire(self, delta, key):
-        """The client side of the enclave wire, then the enclave's ingest:
-        per chunk, stochastic quantize -> canonical field residues ->
-        packed words (what crosses the wire) -> unpack -> dequantize.
-        Returns (the reconstructed delta tree, the per-chunk words)."""
-        ebits = self._enclave_bits
-        emod = (1 << ebits) if ebits < 32 else (1 << 32)
-        evr = float(self.fl_cfg.secure_agg_range)
-        xs = self._plan.chunk_arrays(_as_device_tree(delta, self.device))
-        outs, words = [], []
-        for x, k in zip(xs, prf.split(key, len(xs))):
-            q = sa.quantize(x, ebits, evr, k)
-            w = sa.pack_residues(sa.to_field(q, emod), emod)
-            q2 = sa.recenter(sa.unpack_residues(w, x.shape[-1], emod), emod)
-            outs.append(sa.dequantize(q2, ebits, evr))
-            words.append(w)
-        return self._plan.unchunk(outs), tuple(words)
+        """:func:`enclave_wire` at this server's width and range."""
+        return enclave_wire(self._plan, delta, key, self._enclave_bits,
+                            float(self.fl_cfg.secure_agg_range), self.device)
 
     def _wire_pack(self, rows, session_key):
         """Client side: each chunk's session ``reduce``s its row to packed
@@ -628,3 +640,317 @@ class AsyncServer:
         self.telemetry.gauge("buffered_contributions", 0, **self._tl)
         self._fill = 0
         self.fault_metrics["released_updates"] += 1
+
+
+# ---------------------------------------------------------------------------
+# Event-driven wall-clock / network simulation (sync vs async)
+# ---------------------------------------------------------------------------
+@dataclass
+class SimResult:
+    wall_clock: float
+    bytes_up: float
+    bytes_down: float
+    applied_updates: int
+    server_steps: int
+
+    @property
+    def total_bytes(self) -> float:
+        return self.bytes_up + self.bytes_down
+
+
+def _device_times(n: int, seed: int, mu: float = 2.5, sigma: float = 1.2):
+    rs = np.random.RandomState(seed)
+    return np.exp(rs.normal(mu, sigma, size=n))  # heavy-tailed train times
+
+
+def simulate(mode: str, *, population: int, cohort: int, target_updates: int,
+             model_bytes: float, seed: int = 0, dropout: float = 0.1,
+             buffer_size: int = 10, over_select: float = 1.3,
+             round_overhead: float = 30.0) -> SimResult:
+    """Simulate until ``target_updates`` client updates are applied (see the
+    JAX function: sync rounds wait for the cohort-th fastest of an
+    over-selected cohort plus a coordination overhead; async devices stream
+    continuously and the server applies every ``buffer_size`` arrivals).
+    Numpy only, so the result is the reference's exactly."""
+    times = _device_times(population, seed)
+    rs = np.random.RandomState(seed + 1)
+
+    if mode == "sync":
+        t, up, down, applied, steps = 0.0, 0.0, 0.0, 0, 0
+        while applied < target_updates:
+            n_sel = int(cohort * over_select)
+            sel = rs.choice(population, size=n_sel, replace=False)
+            alive = sel[rs.uniform(size=n_sel) > dropout]
+            down += n_sel * model_bytes  # everyone selected downloads
+            finish = np.sort(times[alive])
+            if len(finish) < cohort:
+                t += (float(finish[-1]) if len(finish) else 1.0) \
+                    + round_overhead
+                continue
+            t += float(finish[cohort - 1]) + round_overhead
+            up += len(alive) * model_bytes  # late survivors' uploads wasted
+            applied += cohort
+            steps += 1
+        return SimResult(t, up, down, applied, steps)
+
+    if mode == "async":
+        heap: List[Tuple[float, int]] = []
+        active = rs.choice(population, size=cohort, replace=False)
+        for d in active:
+            heapq.heappush(heap, (float(times[d]), int(d)))
+        t, applied, steps = 0.0, 0, 0
+        down = cohort * model_bytes
+        up = 0.0
+        buf = 0
+        while applied < target_updates:
+            t, d = heapq.heappop(heap)
+            if rs.uniform() < dropout:
+                pass  # dropped mid-training: no upload
+            else:
+                up += model_bytes
+                buf += 1
+                applied += 1
+                if buf >= buffer_size:
+                    buf = 0
+                    steps += 1
+            nxt = int(rs.randint(population))
+            down += model_bytes
+            heapq.heappush(heap, (t + float(times[nxt]), nxt))
+        return SimResult(t, up, down, applied, steps)
+
+    raise ValueError(mode)
+
+
+# ---------------------------------------------------------------------------
+# Event-driven simulation over the port's engines
+# ---------------------------------------------------------------------------
+@dataclass
+class TrainingSimResult:
+    sim: SimResult
+    losses: List[float]  # per-applied-update client loss trace
+    host_seconds: float  # host wall-clock spent in the engines
+    killed: int = 0  # devices that died mid-round (their work is wasted)
+    released_updates: int = 0  # server applies that released a params update
+    wasted_updates: int = 0  # trained contributions never released
+    fault_metrics: Optional[dict] = None  # the engine's degradation counters
+
+    @property
+    def final_loss(self) -> float:
+        k = max(1, len(self.losses) // 10)
+        return float(np.mean(self.losses[-k:]))
+
+    def steps_to_loss(self, target: float) -> Optional[int]:
+        """First applied update whose trailing-10 mean loss hits ``target``
+        (None if never reached)."""
+        xs = np.asarray(self.losses, np.float64)
+        for i in range(len(xs)):
+            lo = max(0, i - 9)
+            if float(xs[lo:i + 1].mean()) <= target:
+                return i + 1
+        return None
+
+
+def simulate_training(mode: str, *, loss_fn: Callable, params, fl_cfg,
+                      make_client_batch: Callable, target_updates: int,
+                      cohort: int, population: int = 1024,
+                      buffer_size: int = 10, model_bytes: float = 4e6,
+                      seed: int = 0, dropout: float = 0.0,
+                      dropout_rate: Optional[float] = None,
+                      devices: Optional[Any] = None,
+                      mask_mode: str = "off",
+                      staleness_exponent: float = 0.5,
+                      round_overhead: float = 30.0,
+                      faults: Optional[Any] = None,
+                      data_by_device: bool = False,
+                      telemetry: Optional["tele.Telemetry"] = None,
+                      device=None) -> TrainingSimResult:
+    """The event-driven fleet simulation driving the port's engines on
+    ``device`` (default the GPU).
+
+    The JAX function's contract: ``mode="sync"`` runs cohort-sized rounds of
+    ``round.build_round_step`` (wall-clock = each round's straggler + the
+    coordination overhead); ``mode="async"`` feeds an ``AsyncServer`` from
+    the heterogeneous-fleet event loop, each device training against the
+    (stale) version it pulled.  ``dropout_rate`` (alias ``dropout``) kills
+    devices mid-round, modulated per device by ``devices``
+    (``device_sim.midround_dropout_prob``); a ``ChurnModel`` on ``devices``
+    drives availability-weighted arrivals and tiered speeds;
+    ``fl_cfg.scaffold`` rides the control variates on the push API (async
+    only); ``faults`` (a ``faults.FaultPlan``) wraps the server in a
+    ``FaultInjector`` and stretches straggler device times;
+    ``data_by_device`` keys client batches by device id.
+
+    ``make_client_batch(client_seed, n_clients)`` returns a batch tree with
+    leading axis ``n_clients``.  The event loop is numpy and the keys are
+    the reference's (``PRNGKey(seed)``, ``fold_in(key, cseed)`` per client,
+    ``fold_in(key, 0x5000 + applied)`` per push, ``fold_in(key, 0x6000)``
+    for the deadline flush, ``fold_in(key, step)`` per sync round), so the
+    arrival order, kills and flushes are the reference's.
+    """
+    from repro_torch.core.fl.round import (build_client_update,
+                                           build_round_step, init_fl_state)
+
+    dev = _device.resolve(device)
+    if dropout_rate is None:
+        dropout_rate = dropout
+    if getattr(fl_cfg, "scaffold", False) and mode != "async":
+        raise ValueError(
+            "FLConfig.scaffold=True is the buffered-async drift correction "
+            "(control variates ride the async push API); use mode='async'")
+    if devices is not None:
+        from repro_torch.core.device_sim import midround_dropout_prob
+        assert len(devices) >= population
+
+        def kill_prob(d: int) -> float:
+            return midround_dropout_prob(devices.devices[d], dropout_rate)
+    else:
+        def kill_prob(d: int) -> float:
+            return dropout_rate
+
+    def on_device(batch):
+        return T.tree_map(lambda x: torch.as_tensor(x).to(dev), batch)
+
+    params = _as_device_tree(params, dev)
+    times = _device_times(population, seed)
+    rs = np.random.RandomState(seed + 1)
+    key = prf.PRNGKey(seed)
+    losses: List[float] = []
+
+    if mode == "sync":
+        step = build_round_step(loss_fn, fl_cfg, cohort_size=cohort,
+                                telemetry=telemetry, device=dev)
+        state = init_fl_state(params, fl_cfg)
+        # a dedicated kill stream keeps device selection independent of it
+        rs_kill = np.random.RandomState(seed + 2)
+        t, up, down, applied, steps = 0.0, 0.0, 0.0, 0, 0
+        host0 = time.perf_counter()
+        while applied < target_updates:
+            sel = rs.choice(population, size=cohort, replace=False)
+            batch = dict(on_device(dict(make_client_batch(steps, cohort))))
+            if dropout_rate > 0.0:
+                survive = np.asarray(
+                    [rs_kill.uniform() >= kill_prob(d) for d in sel],
+                    np.float32)
+                if survive.sum() == 0.0:
+                    survive[0] = 1.0  # degenerate round: keep one survivor
+                sv = torch.as_tensor(survive, device=dev)
+                prior_w = batch.get("weight")
+                batch["weight"] = sv if prior_w is None else sv * prior_w
+            else:
+                survive = np.ones((cohort,), np.float32)
+            state, metrics = step(state, batch, prf.fold_in(key, steps))
+            losses.append(float(metrics["loss"]))
+            t += float(np.max(times[sel])) + round_overhead
+            down += cohort * model_bytes
+            up += int(survive.sum()) * model_bytes
+            applied += int(survive.sum())
+            steps += 1
+        host = time.perf_counter() - host0
+        return TrainingSimResult(
+            SimResult(t, up, down, applied, steps), losses, host)
+
+    if mode == "async":
+        scaffold = bool(getattr(fl_cfg, "scaffold", False))
+        churn_on = (devices is not None
+                    and getattr(devices, "churn", None) is not None)
+        if scaffold:
+            from repro_torch.core.fl.round import build_scaffold_client_update
+            zeros_c = T.tree_map(lambda x: torch.zeros(
+                x.shape, dtype=torch.float32, device=dev), params)
+            scaffold_update = build_scaffold_client_update(loss_fn, fl_cfg)
+            c_scale = buffer_size / population  # the |S|/N variate rate
+            ci: dict = {}  # device -> client control variate (lazy zeros)
+            srv = AsyncServer({"x": params, "c": zeros_c}, fl_cfg,
+                              buffer_size=buffer_size,
+                              staleness_exponent=staleness_exponent,
+                              mask_mode=mask_mode, telemetry=telemetry,
+                              device=dev)
+        else:
+            client_update = build_client_update(loss_fn, fl_cfg)
+            srv = AsyncServer(params, fl_cfg, buffer_size=buffer_size,
+                              staleness_exponent=staleness_exponent,
+                              mask_mode=mask_mode, telemetry=telemetry,
+                              device=dev)
+        eng = srv
+        if faults is not None:
+            from repro_torch.core.fl.faults import FaultInjector
+            eng = FaultInjector(srv, faults)
+
+        def round_time(d: int) -> float:
+            base = (float(devices.devices[d].speed) if churn_on
+                    else float(times[d]))
+            if faults is not None:
+                base *= faults.straggler_mult(d)
+            return base
+
+        def next_device() -> int:
+            if churn_on:
+                w = np.asarray([devices.availability_weight(devices.devices[i])
+                                for i in range(population)], np.float64)
+                tot = w.sum()
+                if tot > 0.0:
+                    return int(rs.choice(population, p=w / tot))
+            return int(rs.randint(population))
+
+        # in flight: (finish time, device, client seed, (version, params) at
+        # PULL time); the client seed is unique, so the heap never compares
+        # the snapshots
+        heap: List[Tuple[float, int, int, Tuple[int, Any]]] = []
+        for i, d in enumerate(rs.choice(population, size=cohort,
+                                        replace=False)):
+            params_now, ver_now = eng.pull()
+            heapq.heappush(heap, (round_time(int(d)), int(d), i,
+                                  (ver_now, params_now)))
+        t, applied, n_started, killed = 0.0, 0, cohort, 0
+        down, up = cohort * model_bytes, 0.0
+        last_ver = srv.version
+        host0 = time.perf_counter()
+        while applied < target_updates:
+            t, d, cseed, (pulled_version, pulled_params) = heapq.heappop(heap)
+            if rs.uniform() >= kill_prob(d):
+                batch = on_device(make_client_batch(
+                    d if data_by_device else cseed, 1))
+                cbatch = T.tree_map(lambda x: x[0], batch)
+                crng = prf.fold_in(key, cseed)
+                if scaffold:
+                    cc = ci.get(d)
+                    if cc is None:
+                        cc = zeros_c
+                    (dx, dc), loss = scaffold_update(
+                        pulled_params["x"], pulled_params["c"], cc, cbatch,
+                        crng)
+                    ci[d] = T.tree_map(lambda a, b: a + b, cc, dc)
+                    delta = {"x": dx,
+                             "c": T.tree_map(lambda v: v * c_scale, dc)}
+                else:
+                    delta, loss = client_update(pulled_params, cbatch, crng)
+                eng.push(delta, pulled_version,
+                         rng=prf.fold_in(key, 0x5000 + applied))
+                losses.append(float(loss))
+                up += model_bytes
+                applied += 1
+            else:
+                killed += 1  # mid-round death: its local work is wasted
+            if churn_on and srv.version != last_ver:
+                devices.step()  # world time advances once per server apply
+                last_ver = srv.version
+            nxt = next_device()
+            params_now, ver_now = eng.pull()
+            heapq.heappush(heap, (t + round_time(nxt), nxt, n_started,
+                                  (ver_now, params_now)))
+            n_started += 1
+            down += model_bytes
+        # the deadline flush: a partial buffer is applied (client mode
+        # recovers the empty slots' masks); below FLConfig.flush_quorum it
+        # abstains
+        eng.flush(rng=prf.fold_in(key, 0x6000))
+        host = time.perf_counter() - host0
+        fm = dict(srv.fault_metrics)
+        wasted = (killed + fm["rejected_pushes"] + fm["lost_contributions"]
+                  + srv._fill)
+        return TrainingSimResult(
+            SimResult(t, up, down, applied, srv.version), losses, host,
+            killed=killed, released_updates=fm["released_updates"],
+            wasted_updates=wasted, fault_metrics=fm)
+
+    raise ValueError(mode)

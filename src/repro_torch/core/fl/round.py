@@ -42,6 +42,7 @@ rounds the product first.  Each round is a
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 from typing import Any, Callable, List, NamedTuple, Optional
@@ -165,6 +166,69 @@ def _client_data(batch, i: int):
     return {k: v[i] for k, v in batch.items()}
 
 
+def _train_and_privatize(client_update, params, batch, clients, crngs, spec,
+                         span, dev):
+    """Local SGD of cohort members ``clients`` (keys ``crngs``) into stacked
+    ``(m, ...)`` f32 deltas, their clip norms (K3, one launch per leaf) and,
+    under device placement, the reference's ``dp.add_noise`` after the
+    clip, in place.  Returns (stacked, losses, norms, clip scales,
+    was_clipped)."""
+    f32 = torch.float32
+    pleaves = T.leaves(params)
+    m = len(clients)
+    with span("round.local_sgd") as sp:
+        stacked = [torch.empty((m,) + tuple(x.shape), dtype=f32, device=dev)
+                   for x in pleaves]
+        losses = torch.stack([
+            client_update(params, _client_data(batch, c), crng,
+                          out=[s[j] for s in stacked])[1].to(f32)
+            for j, (c, crng) in enumerate(zip(clients, crngs))])
+        sp.fence(stacked)
+    with span("round.privatize") as sp:
+        nrm = prf.sqrt_f32(agg.client_sq_norms(stacked))
+        scale = agg.clip_scales(nrm, spec.clip_norm)
+        was_clipped = (scale < 1.0).to(f32)
+        if spec.dev_noise > 0.0:
+            for j, crng in enumerate(crngs):
+                keys = prf.split(prf.fold_in(crng, 1), len(stacked))
+                for s, nk in zip(stacked, keys):
+                    z = prf.normal(nk, s.shape[1:], device=dev)
+                    s[j].mul_(scale[j]).add_(spec.dev_noise * z)
+            scale = torch.ones_like(scale)
+        sp.fence(scale)
+    return stacked, losses, nrm, scale, was_clipped
+
+
+def _encode_clients(stacked, scale, w, slots, crngs, acc, plan, sessions,
+                    spec, span, dev, *, vmapped: bool,
+                    deferred: bool = False):
+    """Encode (+ mask) each client leaf through K6, adding it into the int32
+    accumulator: the reference's ``(d * w)`` then ``encode_tree`` (keyed
+    ``crng`` where the reference vmaps the encode, ``fold_in(crng, 2)`` for
+    its one-client chunks), then ``plan_mask_tree`` of the client's slot.
+    ``deferred`` adds client ``j`` into ``acc[i][j]``."""
+    with span("round.encode"):
+        for j, (slot, crng) in enumerate(zip(slots, crngs)):
+            keys = prf.split(crng if vmapped else prf.fold_in(crng, 2),
+                             len(stacked))
+            for i, s in enumerate(stacked):
+                xw = (s[j].reshape(-1) * scale[j]) * w[j]
+                with span("round.uniforms") as sp:
+                    u = prf.uniform(keys[i], xw.numel(), device=dev)
+                    sp.fence(u)
+                mask = None
+                if sessions is not None:
+                    mask = agg.plan_leaf_mask(plan, sessions, i, slot,
+                                              (xw.numel(),), dev)
+                q = ksa.quantize_mask(xw, mask, u, spec.sa_scale, math.inf)
+                del xw, u, mask
+                with span("round.sum") as sp:
+                    a = acc[i][j] if deferred else acc[i]
+                    agg.add_mod32_(a, q)
+                    sp.fence(a)
+                del q
+
+
 def build_round_step(loss_fn: Callable, fl_cfg, *, cohort_size: int,
                      client_parallel: bool = True,
                      clients_per_chunk: int = 0,
@@ -218,35 +282,14 @@ def build_round_step(loss_fn: Callable, fl_cfg, *, cohort_size: int,
 
         for k in range(n_chunks):
             idx = [j * n_chunks + k for j in range(m)]
+            crngs = rngs[k * m:(k + 1) * m]
             w = weights[idx]
-            with span("round.local_sgd") as sp:
-                stacked = [torch.empty((m,) + tuple(x.shape), dtype=f32,
-                                       device=dev) for x in pleaves]
-                losses = []
-                for j, i in enumerate(idx):
-                    _, loss = client_update(params, _client_data(batch, i),
-                                            rngs[k * m + j],
-                                            out=[s[j] for s in stacked])
-                    losses.append(loss.to(f32))
-                losses = torch.stack(losses)
-                sp.fence(stacked)
-            with span("round.privatize") as sp:
-                nrm = prf.sqrt_f32(agg.client_sq_norms(stacked))
-                scale = agg.clip_scales(nrm, spec.clip_norm)
-                was_clipped = (scale < 1.0).to(f32)
-                if spec.dev_noise > 0.0:
-                    # the reference's dp.add_noise after the clip, in place
-                    for j in range(m):
-                        keys = prf.split(prf.fold_in(rngs[k * m + j], 1),
-                                         len(stacked))
-                        for s, nk in zip(stacked, keys):
-                            z = prf.normal(nk, s.shape[1:], device=dev)
-                            s[j].mul_(scale[j]).add_(spec.dev_noise * z)
-                    scale = torch.ones_like(scale)
-                sp.fence(scale)
+            stacked, losses, nrm, scale, was_clipped = _train_and_privatize(
+                client_update, params, batch, idx, crngs, spec, span, dev)
             if use_sa:
-                _encode_chunk(stacked, scale, w, idx, k, rngs, acc, deferred,
-                              plan, sessions)
+                _encode_clients(stacked, scale, w, idx, crngs, acc, plan,
+                                sessions, spec, span, dev, vmapped=m > 1,
+                                deferred=deferred)
             else:
                 with span("round.sum") as sp:
                     for i, s in enumerate(stacked):
@@ -289,35 +332,6 @@ def build_round_step(loss_fn: Callable, fl_cfg, *, cohort_size: int,
         }
         return FLState(new_params, new_opt, state.round_idx + 1), metrics
 
-    def _encode_chunk(stacked, scale, w, idx, k, rngs, acc, deferred, plan,
-                      sessions):
-        """Encode (+ mask) each client leaf through K6, adding it into the
-        int32 accumulator: the reference's ``(d * w)`` then ``encode_tree``
-        (keyed ``fold_in(crng, 2)`` for one-client chunks, ``crng`` for
-        vmapped ones), then ``plan_mask_tree`` of the client's slot."""
-        with span("round.encode"):
-            for j, slot in enumerate(idx):
-                crng = rngs[k * m + j]
-                keys = prf.split(prf.fold_in(crng, 2) if m == 1 else crng,
-                                 len(stacked))
-                for i, s in enumerate(stacked):
-                    xw = (s[j].reshape(-1) * scale[j]) * w[j]
-                    with span("round.uniforms") as sp:
-                        u = prf.uniform(keys[i], xw.numel(), device=dev)
-                        sp.fence(u)
-                    mask = None
-                    if sessions is not None:
-                        mask = agg.plan_leaf_mask(
-                            plan, sessions, i, slot, (xw.numel(),), dev)
-                    q = ksa.quantize_mask(xw, mask, u, spec.sa_scale,
-                                          math.inf)
-                    del xw, u, mask
-                    with span("round.sum") as sp:
-                        a = acc[i][j] if deferred else acc[i]
-                        agg.add_mod32_(a, q)
-                        sp.fence(a)
-                    del q
-
     return _instrument_step(round_step, tel, "sync")
 
 
@@ -337,11 +351,97 @@ def _instrument_step(round_step: Callable, tel: "tele.Telemetry",
 
 
 def build_sharded_round_step(loss_fn: Callable, fl_cfg, *, cohort_size: int,
-                             num_leaves: int, mesh=None,
-                             telemetry=None) -> Callable:
-    raise NotImplementedError(
-        "the cohort-sharded round is ported with the aggregation tier "
-        "(ROADMAP Queue 1, item 8)")
+                             num_leaves: int,
+                             telemetry: Optional["tele.Telemetry"] = None,
+                             device=None) -> Callable:
+    """A synchronous round over the aggregation tier's leaves.
+
+    The cohort splits into ``num_leaves`` contiguous shards; leaf ``l``
+    trains its ``cohort_size / num_leaves`` clients, clips them (K3 over
+    the leaf's stacked deltas), encodes each client leaf (K6, + the GLOBAL
+    slot's pairwise mask under ``fl_cfg.secure_agg_masked``: one session
+    spans the cohort, so masks pair across leaves) into its own int32
+    partial; the root adds the partials mod 2^32 (the reference's
+    field-modulus ``psum``), decodes (K7), draws the central noise once and
+    applies the server optimizer.  The int32 sums are exact, so the masked
+    round is bit-equal to the unmasked one.  Client ``c`` draws
+    ``split(rng, cohort_size)[c]`` and encodes under it directly, as the
+    fully-vmapped reference does, so the round equals
+    ``build_round_step(clients_per_chunk=cohort_size)`` given the same
+    deltas.  The leaves run one after another on ``device`` (the GPU by
+    default).
+    """
+    dev = _device.resolve(device)
+    tel = telemetry if telemetry is not None else tele.get_default()
+    with tel.span("round.setup", kind="sharded", cohort=cohort_size,
+                  leaves=num_leaves):
+        assert cohort_size % num_leaves == 0
+        m = cohort_size // num_leaves
+        client_update = build_client_update(loss_fn, fl_cfg)
+        server = build_server_opt(fl_cfg)
+        spec = agg.make_spec(fl_cfg, cohort_size)
+        if not spec.use_secure_agg:
+            raise ValueError("the sharded tier aggregates in the secure-agg "
+                             "integer field: set secure_agg_bits > 0")
+        masked = getattr(fl_cfg, "secure_agg_masked", False)
+
+    def span(name: str):
+        return tel.span(name, kind="sharded")
+
+    def round_step(state: FLState, batch, rng):
+        params = state.params
+        rng = prf.key_words(rng)
+        f32 = torch.float32
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        weights = batch.pop("weight", None)
+        weights = (torch.ones((cohort_size,), dtype=f32, device=dev)
+                   if weights is None else weights.to(f32))
+        rngs = prf.split(rng, cohort_size)  # client c -> rngs[c]
+        plan = agg.plan_for(params, fl_cfg)
+        sessions = (agg.plan_sessions(spec, plan,
+                                      prf.fold_in(rng, SESSION_TAG))
+                    if masked else None)
+        paths, pleaves = T.flatten(params)
+        acc = [None] * len(pleaves)
+        stats = []
+        for leaf in range(num_leaves):
+            idx = list(range(leaf * m, (leaf + 1) * m))
+            crngs = [rngs[c] for c in idx]
+            w = weights[idx]
+            stacked, losses, nrm, scale, was_clipped = _train_and_privatize(
+                client_update, params, batch, idx, crngs, spec, span, dev)
+            part = [torch.zeros(tuple(x.shape), dtype=torch.int32,
+                                device=dev) for x in pleaves]
+            _encode_clients(stacked, scale, w, idx, crngs, part, plan,
+                            sessions, spec, span, dev, vmapped=True)
+            del stacked
+            with span("round.sum") as sp:  # the root's wraparound combine
+                acc = [p if a is None else agg.add_mod32_(a, p)
+                       for a, p in zip(acc, part)]
+                sp.fence(acc)
+            stats.append(((losses * w).sum(), (nrm * w).sum(),
+                          (was_clipped * w).sum(), w.sum()))
+        loss_s, norm_s, clip_s, w_s = (
+            functools.reduce(lambda a, b: a + b, col) for col in zip(*stats))
+        w_total = torch.clamp(w_s, min=1e-9)
+        with span("round.decode") as sp:
+            mean_delta = agg.finalize_aggregate(
+                T.unflatten(paths, acc), w_s, spec,
+                prf.fold_in(rng, TEE_NOISE_TAG))
+            del acc
+            new_params, new_opt = server.apply(params, state.opt_state,
+                                               mean_delta)
+            sp.fence(new_params)
+        metrics = {
+            "loss": loss_s / w_total,
+            "update_norm": norm_s / w_total,
+            "clip_fraction": clip_s / w_total,
+            "participation": w_s / cohort_size,
+            "round": state.round_idx,
+        }
+        return FLState(new_params, new_opt, state.round_idx + 1), metrics
+
+    return _instrument_step(round_step, tel, "sharded")
 
 
 def rounds_to_epsilon(fl_cfg, cohort_size: int, population: int,

@@ -14,20 +14,24 @@ from typing import Any, Callable, List, Tuple
 Path = Tuple[str, ...]
 
 
+def _walk(node, prefix: Path, paths: List[Path], leaves: List[Any]) -> None:
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk(node[k], prefix + (k,), paths, leaves)
+    else:
+        paths.append(prefix)
+        leaves.append(node)
+
+
 def flatten(tree) -> Tuple[List[Path], List[Any]]:
-    """(paths, leaves) in sorted-key depth-first order."""
+    """(paths, leaves) in sorted-key depth-first order.
+
+    The walk is a module-level function: a recursive closure would form a
+    reference cycle holding the leaves list, so every flattened tensor
+    would outlive its last use until Python's cycle collector ran."""
     paths: List[Path] = []
     leaves: List[Any] = []
-
-    def walk(node, prefix: Path):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], prefix + (k,))
-        else:
-            paths.append(prefix)
-            leaves.append(node)
-
-    walk(tree, ())
+    _walk(tree, (), paths, leaves)
     return paths, leaves
 
 

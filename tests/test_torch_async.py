@@ -368,3 +368,131 @@ def test_entry_point_needs_a_gpu_unless_told_cpu():
                               device="cpu"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(qwen2_1_5b.reduced(), seed=0)
+
+
+# --- the event-driven simulators -----------------------------------------------
+SIM_CASES = [dict(population=5000, cohort=100, target_updates=2000,
+                  model_bytes=1e6, seed=3),
+             dict(population=300, cohort=16, target_updates=160,
+                  model_bytes=4e6, seed=7, dropout=0.3, buffer_size=8,
+                  over_select=1.5)]
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+@pytest.mark.parametrize("case", range(len(SIM_CASES)))
+def test_simulate_equals_the_reference(mode, case):
+    """``simulate`` is numpy only: its SimResult is the reference's, every
+    field exactly."""
+    from repro.core.fl.async_fl import simulate as jsimulate
+    from repro_torch.core.fl.async_fl import simulate
+    got = simulate(mode, **SIM_CASES[case])
+    want = jsimulate(mode, **SIM_CASES[case])
+    assert (got.wall_clock, got.bytes_up, got.bytes_down,
+            got.applied_updates, got.server_steps) == (
+        want.wall_clock, want.bytes_up, want.bytes_down,
+        want.applied_updates, want.server_steps)
+    assert got.total_bytes == want.total_bytes
+    with pytest.raises(ValueError):
+        simulate("bogus", **SIM_CASES[case])
+
+
+def test_async_beats_sync_wallclock_and_bytes():
+    """The Papaya direction the paper cites: async faster, less traffic."""
+    from repro_torch.core.fl.async_fl import simulate
+    kw = SIM_CASES[0]
+    sync, async_ = simulate("sync", **kw), simulate("async", **kw)
+    assert sync.wall_clock / async_.wall_clock > 1.5
+    assert sync.total_bytes / async_.total_bytes > 1.1
+    assert async_.applied_updates >= kw["target_updates"]
+
+
+def _classifier_sim(mode, ref, **kw):
+    """simulate_training over the MLP classifier on the reference test's
+    draws: batches are the reference's ``make_client_batch`` (JAX), handed
+    to the port as tensors."""
+    from repro.configs import mlp as jmlp
+    from repro.core.fl import async_fl as jafl
+    from repro.models.model import build_mlp_classifier as jbuild
+    from repro_torch.configs import mlp as mlp_cfg
+    from repro_torch.core.fl import async_fl as tafl
+    from repro_torch.kernels import prf
+    from repro_torch.models.model import build_mlp_classifier
+
+    cfg = jmlp.CONFIG
+    jmodel = jbuild(cfg)
+    key = jax.random.PRNGKey(9)
+    wstar = jax.random.normal(key, (cfg.num_features,))
+
+    def jbatch(seed, n):
+        k = jax.random.fold_in(key, seed)
+        x = jax.random.normal(k, (n, 4, cfg.num_features))
+        y = (jnp.einsum("cbf,f->cb", x, wstar) > 0).astype(jnp.float32)
+        return {"features": x, "label": y}
+
+    fl_kw = dict(local_steps=2, local_lr=0.4, clip_norm=1.0, server_lr=1.0)
+    common = dict(target_updates=96, cohort=16, population=64, seed=1)
+    common.update(kw)
+    if ref:
+        return jafl.simulate_training(
+            mode, loss_fn=jmodel.loss_fn,
+            params=jmodel.init(jax.random.PRNGKey(0)), fl_cfg=JFL(**fl_kw),
+            make_client_batch=jbatch, **common)
+    model = build_mlp_classifier(mlp_cfg.CONFIG, device="cpu")
+    return tafl.simulate_training(
+        mode, loss_fn=model.loss_fn, params=model.init(prf.PRNGKey(0)),
+        fl_cfg=FLConfig(**fl_kw),
+        make_client_batch=lambda s, n: {k: torch.from_numpy(np.asarray(v))
+                                        for k, v in jbatch(s, n).items()},
+        device="cpu", **common)
+
+
+def _same_run(got, want):
+    assert (got.sim.applied_updates, got.sim.server_steps, got.killed,
+            got.released_updates, got.wasted_updates) == (
+        want.sim.applied_updates, want.sim.server_steps, want.killed,
+        want.released_updates, want.wasted_updates)
+    assert (got.sim.wall_clock, got.sim.bytes_up, got.sim.bytes_down) == (
+        want.sim.wall_clock, want.sim.bytes_up, want.sim.bytes_down)
+    np.testing.assert_allclose(got.losses, want.losses, rtol=0, atol=1e-5)
+
+
+def test_simulate_training_async_converges():
+    """The event loop drives the port's AsyncServer and learns; the arrival
+    order, counts and simulated clock are the reference's, the losses
+    within the round's 1e-5 (autograd vs XLA, polynomial staleness)."""
+    res = _classifier_sim("async", ref=False, buffer_size=8)
+    assert res.sim.applied_updates >= 96
+    assert res.sim.server_steps == 96 // 8
+    k = len(res.losses) // 4
+    assert np.mean(res.losses[-k:]) < np.mean(res.losses[:k])
+    _same_run(res, _classifier_sim("async", ref=True, buffer_size=8))
+
+
+def test_simulate_training_faulted_client_mode_equals_the_reference():
+    """mask_mode='client' behind a FaultInjector (client deaths, duplicates,
+    delays, a straggler tail) and mid-round kills: the same kills, drops,
+    releases and wasted work as the reference; the deadline flush
+    recovers the empty slots."""
+    from repro.core.fl import faults as jfaults
+    from repro_torch.core.fl import faults
+    spec = dict(p_client_death=0.1, p_duplicate=0.2, p_delay=0.2,
+                delay_pushes=2, straggler_frac=0.25, seed=4)
+    kw = dict(buffer_size=6, target_updates=40, mask_mode="client",
+              dropout_rate=0.1)
+    got = _classifier_sim("async", ref=False,
+                          faults=faults.FaultPlan(faults.FaultSpec(**spec)),
+                          **kw)
+    want = _classifier_sim("async", ref=True, faults=jfaults.FaultPlan(
+        jfaults.FaultSpec(**spec)), **kw)
+    _same_run(got, want)
+    assert got.fault_metrics == {k: float(v) if isinstance(v, float) else v
+                                 for k, v in want.fault_metrics.items()}
+    assert got.killed > 0 and got.fault_metrics["duplicate_pushes"] > 0
+
+
+def test_simulate_training_sync_equals_the_reference():
+    """The sync mode's rounds: same selections, survivors and clock; the
+    round losses within 1e-5."""
+    kw = dict(target_updates=48, dropout_rate=0.2)
+    _same_run(_classifier_sim("sync", ref=False, **kw),
+              _classifier_sim("sync", ref=True, **kw))

@@ -454,3 +454,137 @@ def test_compressed_config_requires_the_field():
     with pytest.raises(ValueError, match="secure_agg_bits"):
         FLConfig(compress_mode="sketch", compress_rate=0.5,
                  secure_agg_bits=0)
+
+
+# --- the compressed tier (ShardedAsyncServer) --------------------------------
+def _tiers(mode, fl_kw, two_level, ref=False):
+    """The port's 2-leaf x 2-slot tier (and with ``ref`` the reference's
+    session tree of that shape, which one JAX device runs)."""
+    from repro.core.fl.hierarchy import ShardedAsyncServer as JTier
+    from repro_torch.core.fl.hierarchy import ShardedAsyncServer
+    params = _params()
+    ts = ShardedAsyncServer(_tt(params), FLConfig(**fl_kw), num_leaves=2,
+                            leaf_buffer=2, mask_mode=mode,
+                            two_level=two_level, staleness_mode="constant",
+                            device="cpu")
+    js = (JTier(_jx(params), JFL(**fl_kw), num_leaves=2, leaf_buffer=2,
+                mask_mode=mode, two_level=True, staleness_mode="constant")
+          if ref else None)
+    return ts, js
+
+
+def _land(srv, d, slot, j=False):
+    d = _jx(d) if j else _tt(d)
+    if srv.mask_mode == "client":
+        srv.push_encoded(srv.encode_push(d, srv.version, slot=slot))
+    else:
+        srv.push(d, srv.version, slots=[slot])
+
+
+@pytest.mark.parametrize("mode", ["off", "tee", "tee_stream", "client"])
+@pytest.mark.parametrize("two_level", [False, True],
+                         ids=["flat-session", "session-tree"])
+def test_rate_one_bit_identical_tier(mode, two_level):
+    """Rate 1.0 is the identity on the tier too, through nested client +
+    whole-leaf dropout (only slot 0 lands: leaf 1 dies entirely); the
+    session tree equals the reference's."""
+    ds = _deltas(1)
+    outs = []
+    for rate_kw in ({}, {"compress_mode": "sketch", "compress_rate": 1.0}):
+        ts, js = _tiers(mode, _fl(**rate_kw), two_level, ref=two_level)
+        _land(ts, ds[0], 0)
+        ts.flush(rng=convert.key_from_numpy(jax.random.PRNGKey(11)))
+        assert ts.version == 1
+        outs.append(ts.params)
+        if js is not None:
+            _land(js, ds[0], 0, j=True)
+            js.flush(rng=jax.random.PRNGKey(11))
+            _assert_trees_equal(js.params, ts.params)
+    for a, b in zip(T.leaves(outs[0]), T.leaves(outs[1])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ("client", "tee_stream"))
+@pytest.mark.parametrize("two_level", [False, True],
+                         ids=["flat-session", "session-tree"])
+def test_compressed_tier_matches_flat(mode, two_level):
+    """Sketch-domain sums commute with the leaves: the compressed tier
+    decodes bit-equal to the port's compressed flat server and to the
+    reference's (operators keyed by the ENGINE session key), through a
+    recovering flush."""
+    fl_kw = _fl(compress_mode="sketch", compress_rate=0.25)
+    ts, _ = _tiers(mode, fl_kw, two_level)
+    js, flat = _servers(mode, fl_kw)
+    ds = _deltas(4)
+    frng = jax.random.PRNGKey(11)
+    for s in (0, 2, 3):
+        _land(ts, ds[s], s)
+        if mode == "client":
+            flat.push_encoded(flat.encode_push(_tt(ds[s]), 0, slot=s))
+            js.push_encoded(js.encode_push(_jx(ds[s]), 0, slot=s))
+        else:
+            flat.push(_tt(ds[s]), 0, slot=s)
+            js.push(_jx(ds[s]), 0, slot=s)
+    for srv, k in ((ts, convert.key_from_numpy(frng)),
+                   (flat, convert.key_from_numpy(frng)), (js, frng)):
+        srv.flush(rng=k)
+    assert ts.version == flat.version == js.version == 1
+    for a, b in zip(T.leaves(ts.params), T.leaves(flat.params)):
+        assert torch.equal(a, b)
+    _assert_trees_equal(js.params, ts.params)
+    assert tuple(b.shape[-1] for b in ts._bufs) == tuple(
+        wc.padded for wc in agg.plan_wire_chunks(ts._spec, ts.plan))
+
+
+def test_retry_after_session_roll_rederives_operators():
+    """A delayed compressed push landing after its session rolled is
+    re-encoded under the NEW session (new masks and new sketch operators);
+    the run replays bit for bit from the survivor record, and its fault
+    trace is the reference's."""
+    from repro.core.fl import faults as jfaults
+    from repro_torch.core.fl.faults import FaultInjector, FaultPlan, FaultSpec
+    fl_kw = _fl(compress_mode="sketch", compress_rate=0.25)
+    params = _params()
+
+    def mk(ref=False):
+        if ref:
+            return JServer(_jx(params), JFL(**fl_kw), buffer_size=2,
+                           mask_mode="client", strict=False,
+                           staleness_mode="constant")
+        return AsyncServer(_tt(params), FLConfig(**fl_kw), buffer_size=2,
+                           mask_mode="client", strict=False,
+                           staleness_mode="constant", device="cpu")
+
+    ds = _deltas(4)
+    runs = []
+    for ref in (False, True):
+        cv = _jx if ref else _tt
+        srv = mk(ref)
+        plan = (jfaults.FaultPlan(jfaults.FaultSpec(
+            p_delay=1.0, delay_pushes=1, seed=0)) if ref
+            else FaultPlan(FaultSpec(p_delay=1.0, delay_pushes=1, seed=0)))
+        inj = (jfaults.FaultInjector if ref else FaultInjector)(srv, plan)
+        inj.push(cv(ds[0]), srv.version)  # held, encoded under session 0
+        srv.push_encoded(srv.encode_push(cv(ds[2]), srv.version, slot=0))
+        srv.push_encoded(srv.encode_push(cv(ds[3]), srv.version, slot=1))
+        assert srv.version == 1  # the session rolled
+        inj.push(cv(ds[1]), srv.version)  # the held push lands stale
+        inj.flush(force=True)
+        assert any(site == "retry" for site, _ in inj.plan.trace)
+        assert len(inj.delivered) == 2 and srv.version == 2
+        runs.append((srv, inj))
+    (ts, tinj), (js, jinj) = runs
+    assert tinj.plan.trace == jinj.plan.trace
+    assert tinj.survivors == jinj.survivors
+    _assert_trees_equal(js.params, ts.params)
+    ref = mk()
+    ref.push_encoded(ref.encode_push(_tt(ds[2]), 0, slot=0))
+    ref.push_encoded(ref.encode_push(_tt(ds[3]), 0, slot=1))
+    for ver in sorted(tinj.survivors):
+        assert ref.version == ver
+        for slot, (seq, cv) in sorted(tinj.survivors[ver].items()):
+            ref.push_encoded(ref.encode_push(_tt(ds[seq]), cv, slot=slot))
+        if ref.version == ver:
+            ref.flush(force=True)
+    for a, b in zip(T.leaves(ts.params), T.leaves(ref.params)):
+        assert torch.equal(a, b)

@@ -317,3 +317,42 @@ def test_cuda_bit_counts_and_threshold_cdf_match_the_cpu(cuda, p):
     want = fa.threshold_cdf(v.cpu(), thr.cpu(), (1, 2), p)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0,
                                equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,two_level,bits", [
+    ("client", True, 16), ("tee_stream", False, 32), ("tee", True, 32)])
+def test_cuda_tier_matches_the_cpu_tier(cuda, mode, two_level, bits):
+    """The 4 x 2 tier on the card (K1 / K2's PRF lane / K5 per leaf) lands
+    the CPU tier's buffers and params bit for bit, through a full session
+    and a flush that recovers a dropped client and a dead leaf."""
+    from repro_torch.core.fl.hierarchy import ShardedAsyncServer
+    fl = FLConfig(clip_norm=1.0, secure_agg_bits=bits,
+                  param_chunk_elems=600)
+    g = torch.Generator().manual_seed(5)
+    params = {"a": torch.zeros(700), "b": torch.zeros(3, 40)}
+    deltas = [{k: torch.randn(v.shape, generator=g) * 0.01
+               for k, v in params.items()} for _ in range(14)]
+    out = []
+    for dev in ("cpu", cuda):
+        srv = ShardedAsyncServer(params, fl, num_leaves=4, leaf_buffer=2,
+                                 mask_mode=mode, two_level=two_level,
+                                 staleness_mode="constant", device=dev)
+        stack = {k: torch.stack([d[k] for d in deltas[:8]]) for k in params}
+        if mode == "client":
+            srv.push_encoded(srv.encode_push(stack, 0))
+        else:
+            srv.push(stack, 0)
+        for s, d in zip((0, 2, 3, 5), deltas[8:]):
+            if s == 5:
+                srv.mark_leaf_dead(1)  # loses slots 2 and 3
+            if mode == "client":
+                srv.push_encoded(srv.encode_push(d, 1, slot=s))
+            else:
+                srv.push(d, 1, slots=s)
+        assert srv.flush()
+        out.append((srv.params, [b.cpu() for b in srv._bufs]))
+    (pc, bc), (pg, bg) = out
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(T.leaves(pc),
+                                                       T.leaves(pg)))
+    assert all(torch.equal(a, b) for a, b in zip(bc, bg))

@@ -1,0 +1,94 @@
+"""The port's example twins against the JAX package's examples, on the CPU.
+
+Each twin runs with ``--device cpu`` beside the reference example's own code
+on the same draws:
+
+- ``quickstart``: the reference script run for 3 rounds (its ``ROUNDS``
+  constant set to 3) prints the twin's lines — FA, policy, rounds, DP
+  metrics, epsilon and the funnel report — the loss and metric digits
+  included;
+- ``async_vs_sync``: the fleet-simulation lines equal (numpy), the
+  buffered-async run's loss line equal at 48 pushes, the simulated clocks
+  of the sync and async event loops equal and their final losses within
+  1e-4 (the round's 1e-5 tolerance through a 4-digit print); the
+  reference script's convergence assert is taken out of its copy (its own
+  loss rises at the full 400 pushes, see the twin's docstring);
+- ``serve_on_device``: ``serve.main`` with the example's argv prints the
+  reference's int8 and sample lines;
+- ``observability_smoke`` is held in ``tests/test_torch_obs.py``.
+"""
+import io
+import re
+from contextlib import redirect_stdout
+from pathlib import Path
+
+import pytest
+
+from repro_torch.examples import async_vs_sync, quickstart, serve_on_device
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _run_reference(name: str, edits) -> list:
+    """Run ``examples/<name>.py``'s source with ``edits`` (old, new) applied;
+    returns its printed lines."""
+    src = (REPO / "examples" / f"{name}.py").read_text()
+    for old, new in edits:
+        assert old in src, old
+        src = src.replace(old, new)
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        exec(compile(src, f"examples/{name}.py", "exec"),
+             {"__name__": "__main__"})
+    return buf.getvalue().splitlines()
+
+
+def _run_port(main, argv) -> list:
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        assert main(argv) == 0
+    return buf.getvalue().splitlines()
+
+
+def test_quickstart_twin_prints_the_reference_lines():
+    got = _run_port(quickstart.main, ["--device", "cpu", "--rounds", "3"])
+    want = _run_reference("quickstart", [
+        ("COHORT, ROUNDS, POPULATION = 64, 40, 4096",
+         "COHORT, ROUNDS, POPULATION = 64, 3, 4096")])
+    assert got == want
+
+
+def _numbers(line: str):
+    return [float(x) for x in re.findall(r"-?\d+\.\d+|-?\d+", line)]
+
+
+def test_async_vs_sync_twin_prints_the_reference_lines():
+    got = _run_port(async_vs_sync.main, ["--device", "cpu", "--pushes", "48",
+                                         "--target-updates", "32"])
+    want = _run_reference("async_vs_sync", [
+        ("for t in range(400):", "for t in range(48):"),
+        ("assert np.mean(losses[-20:]) < np.mean(losses[:20])\n", ""),
+        ("target_updates=128", "target_updates=32")])
+    assert len(got) == len(want) == 13
+    assert got[:5] == want[:5]  # the numpy fleet simulation
+    assert got[6] == want[6]  # "async loss a -> b over 48 pushes, ..."
+    assert got[7] == want[7]
+    for g, w in zip(got[10:12], want[10:12]):  # sync / async event loops
+        gn, wn = _numbers(g), _numbers(w)
+        assert gn[0] == wn[0]  # simulated wall clock
+        assert gn[-1] == pytest.approx(wn[-1], abs=1e-4)  # final loss
+    assert got[12] == want[12]  # simulated speedup
+
+
+def test_serve_on_device_twin_prints_the_reference_lines():
+    from repro.launch import serve as jserve
+    got = _run_port(serve_on_device.main, ["--device", "cpu"])
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        assert jserve.main(serve_on_device.ARGV) == 0
+    want = buf.getvalue().splitlines()
+    assert len(got) == len(want) == 4
+    assert got[0] == want[0]  # the int8 MiB line
+    assert got[3] == want[3]  # the sampled tokens
+    assert got[1].startswith("prefill: 4x32 in ")
+    assert got[2].startswith("decode: 16 steps in ")

@@ -500,6 +500,6 @@ def test_entry_points_need_a_gpu_unless_told_cpu():
         tround.build_round_step(None, FLConfig(), cohort_size=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_mlp_classifier(mlp_cfg.CONFIG)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         tround.build_sharded_round_step(None, FLConfig(), cohort_size=4,
                                         num_leaves=2)
