@@ -46,6 +46,22 @@ Phases (each prints its seconds):
      decode steps of the plain run (device-busy ms, idle share, kernels);
      the init's time (the reference's key tree and normal draws), a second
      init held bit-equal to the served weights;
+  2g. the other families: ``serve.main`` at each one's published width,
+     batch 8, 32 greedy steps, f32: deepseek-moe-16b cut to 4 of 28
+     layers (the dense ``layer_0`` + 3 scanned MoE layers; 2,267,039,744
+     parameters) at its published capacity 1.25 and again (``generate`` on
+     the same weights and prompt) at ``capacity_factor = 64``, drop-free;
+     mamba2-780m at its full 48 layers (no attention, no K10);
+     recurrentgemma-2b at its full 26 layers (8 local-attention layers,
+     MQA over a 2048-slot ring that the 2080-long decode wraps);
+     internvl2-76b cut to 2 of 80 layers behind 1024 stub image tokens;
+     whisper-tiny's 4 + 4 layers over 1500 stub encoder frames (prompt
+     32).  Every step's logits against a teacher-forced ``apply`` over
+     prompt + generated tokens, but at the published MoE capacity (a
+     single-token step drops pairs that the batch does not), where the
+     prefill's logits are held against ``apply`` on the prompt and the
+     steps must be finite; a ``torch.profiler`` breakdown of 4 decode
+     steps each (device-busy ms, idle share) and each run's peak memory;
   2d. training: ``python -m repro_torch.launch.train``'s ``main`` at
      qwen2-1.5b's published width AND depth (28 layers, cohort 4, sequence
      64, 2 rounds, secure-agg bits 32, TEE noise 0.3; every printed loss,
@@ -86,7 +102,9 @@ Phases (each prints its seconds):
      loss below the first decile's); the sharded round on the classifier
      (4 leaves; masked == unmasked, within 1e-6 of the single-host round);
   3. the exact kernel launch counts of each path (and zero plain-version
-     calls): K10 once per layer per decode step of each serve run; per
+     calls): K10 once per layer per decode step of each serve run (phase
+     2g: once per attention layer per step, twice per whisper decoder
+     layer, never in mamba2); per
      training round at cohort 4 (one chunk of 4 clients, 14 leaves) K3 14,
      K6 56 and K7 14 at bits 32, K3 14 and K8 14 at bits 0; K9 once per
      device tile of each CDF vote (2 in the example, 1 in the pipeline, 16
@@ -99,8 +117,8 @@ Phases (each prints its seconds):
      over 67 T/s, integer instructions over the issue rate SMs x 128 x the
      maximum SM clock) and its plain version's time; K2's PRF lane (its
      launches counted apart) beside its unmasked lane; K10's
-     device time (calls queued behind a sleep kernel) at the serve shape
-     and at the decode_32k shape, beside one
+     device time (calls queued behind a sleep kernel) at the serve shape,
+     the decode_32k shape and phase 2g's four new shapes, each beside one
      ``scaled_dot_product_attention`` call on the same inputs; K9 at the
      fleet query's launch shape (2^16 x 32 x 128).
 
@@ -110,7 +128,9 @@ values, +-inf thresholds, the fleet tile), and K10 (``flash_decode``, float
 attention) to its plain version within rtol = atol = 2e-5 (f32 sums in
 another order): f32 and bf16 K/V, window 0 and > 0, wrapped ring buffers,
 partly filled caches, ragged W (1, 7, 63, 65, 129, 300, ...), hd 32 to
-256, the serve path's shapes and decode_32k, with the kernel's CTAs per SM
+256, the serve path's shapes, decode_32k and phase 2g's (MQA hd 256 over
+a wrapped 2048 ring, cross attention over 1500 frames, MHA, GQA rep 8 at
+W 3104), with the kernel's CTAs per SM
 and the split count it gives; K6
 (``quantize_mask``, with and without a mask, ragged D, +-inf, NaN and
 saturating inputs) and K7 (``dequantize``, both multipliers) bit-equal; K3
@@ -126,6 +146,7 @@ non-zero before it.  Deltas and weights are random, made from ``--seed``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -193,9 +214,39 @@ SQ_RTOL = 1e-5
 ACC_RTOL = 1e-6
 # the round's largest leaf: qwen2-1.5b's stacked MLP weight, 28 x 1536 x 8960
 ROUND_LEAF = 28 * 1536 * 8960
-# K10's timed shapes: (B, W) of the serve path and of decode_32k
-# (configs/shapes.py: batch 128, one qwen2 layer's 32768-deep cache)
-FD_SHAPES = (("serve", 8, 2080), ("decode_32k", 128, 32768))
+# K10's timed shapes: (B, H, KV, hd, W, window) of the serve path, of
+# decode_32k (configs/shapes.py: batch 128, one qwen2 layer's 32768-deep
+# cache) and of phase 2g's families: recurrentgemma-2b's MQA ring of 2048
+# (10 query heads: two row groups), whisper-tiny's cross attention over
+# 1500 frames, deepseek-moe-16b's MHA and internvl2-76b's GQA rep 8 behind
+# 1024 image tokens
+FD_SHAPES = (("serve", 8, 12, 2, 128, 2080, 0),
+             ("decode_32k", 128, 12, 2, 128, 32768, 0),
+             ("hybrid", 8, 10, 1, 256, 2048, 2048),
+             ("cross", 8, 6, 6, 64, 1500, 0),
+             ("moe", 8, 16, 16, 128, 2080, 0),
+             ("vlm", 8, 64, 8, 128, 3104, 0))
+# phase 2g: the other families served at full width through serve.main,
+# batch 8, 32 greedy steps, f32; depth cut where 80 GB or the run's time
+# forces it.  (run, arch, layers or None for the full depth, prompt,
+# parameters counted from param_shapes, K10 launches per decode step)
+FAMILY_B, FAMILY_STEPS = 8, 32
+FAMILY_RUNS = (
+    ("moe", "deepseek-moe-16b", 4, 2048, 2_267_039_744, 4),
+    ("moe-dropfree", "deepseek-moe-16b", 4, 2048, 2_267_039_744, 4),
+    ("ssm", "mamba2-780m", None, 2048, 780_148_992, 0),
+    ("hybrid", "recurrentgemma-2b", None, 2048, 2_894_574_080, 8),
+    ("vlm", "internvl2-76b", 2, 2048, 3_812_663_296, 2),
+    ("audio", "whisper-tiny", None, 32, 39_593_856, 8),
+)
+# moe-dropfree: the moe run's weights and prompt at capacity_factor =
+# num_experts, where no (token, slot) pair is dropped
+DROPFREE_CAPACITY = 64.0
+# a token routed to another expert set by the teacher-forced pass than by
+# the served one is a near-tie when its k-th and (k+1)-th router
+# probabilities differ by at most this much in the teacher-forced pass
+# (f32 sums in another order move a probability by ~1e-9 here)
+NEAR_TIE = 1e-6
 # phase 2e: a fleet-scale FA query through threshold_cdf: one statistics
 # cohort of 2^20 devices over the paper's 32 dense features and
 # test_system's 128-threshold grid, randomized response at 0.1; K9 votes
@@ -599,6 +650,13 @@ def flash_decode_parity(torch, g) -> None:
         (8, 12, 2, 128, 129, f32, 0, 128, 100),
         (2, 16, 2, 256, 700, bf16, 0, 699, 700),  # hd 256, bf16
         (128, 12, 2, 128, 32768, f32, 0, 32767, 32768),  # decode_32k
+        # phase 2g's served shapes: recurrentgemma-2b's MQA ring (its last
+        # step wrapped), whisper-tiny's cross attention (every frame
+        # valid), deepseek-moe-16b's MHA, internvl2-76b behind its images
+        (8, 10, 1, 256, 2048, f32, 2048, 2079, 2048),
+        (8, 6, 6, 64, 1500, f32, 0, 1499, 1500),
+        (8, 16, 16, 128, 2080, f32, 0, 2079, 2080),
+        (8, 64, 8, 128, 3104, f32, 0, 3103, 3104),
     ]
     worst = 0.0
     for B, H, KV, hd, W, dt, window, pos, filled in cases:
@@ -625,11 +683,12 @@ def flash_decode_parity(torch, g) -> None:
     occ = {(hd, bf): kfd.ctas_per_sm("cuda", hd, bf)
            for hd in kfd.HEAD_DIMS for bf in (False, True)}
     waves = []
-    for shape, B, W in FD_SHAPES:
-        nsplit = kfd.splits(B, 2, 6, W, sms=sms, per_sm=occ[(128, False)])
-        ctas = kfd.row_groups(B, 2, 6) * nsplit
+    for shape, B, H, KV, hd, W, _ in FD_SHAPES:
+        per_sm = occ[(hd, False)]
+        nsplit = kfd.splits(B, KV, H // KV, W, sms=sms, per_sm=per_sm)
+        ctas = kfd.row_groups(B, KV, H // KV) * nsplit
         waves.append(f"{shape} {nsplit} splits, {ctas} CTAs = "
-                     f"{ctas / (sms * occ[(128, False)]):g} waves")
+                     f"{ctas / (sms * per_sm):g} waves")
     log(f"  flash_decode CTAs per SM (hd, bf16): "
         f"{', '.join(f'{k}: {v}' for k, v in occ.items())}; {sms} SMs; "
         f"{'; '.join(waves)}")
@@ -1293,7 +1352,7 @@ def serve_path(torch, seed: int, counts: dict, smi: str) -> None:
               f"teacher forcing by {err:.3g} > {TF_ATOL}")
         decode_ms = gen.decode_s * 1e3 / SERVE_STEPS
         if name == "full":
-            decode_profile(torch, session, smi)
+            decode_profile(torch, session, smi, SERVE_S)
             init_cost(torch, session, seed, n, smi)
         log(f"  serve {name}: prefill {gen.prefill_s * 1e3:.1f} ms "
             f"({SERVE_B * SERVE_S / gen.prefill_s:.0f} tok/s); decode "
@@ -1325,24 +1384,30 @@ def init_cost(torch, session: dict, seed: int, n: int, smi: str) -> None:
     empty_cache(torch)
 
 
-def decode_profile(torch, session: dict, smi: str, steps: int = 4) -> None:
+def decode_profile(torch, session: dict, smi: str, prompt: int,
+                   steps: int = 4, label: str = "decode profile") -> dict:
     """``torch.profiler`` over ``steps`` decode steps of a served run (after
-    a fresh prefill): host ms per step, device-busy ms per step (the sum of
-    kernel times; one stream), the idle share and the kernels by device
-    time."""
+    a fresh prefill of its prompt of ``prompt`` tokens): host ms per step,
+    device-busy ms per step (the sum of kernel times; one stream), the idle
+    share and the kernels by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     model, params = session["model"], session["params"]
     gen = session["generation"]
-    _, cache = model.prefill(params, {"tokens": session["tokens"]},
-                             SERVE_S + SERVE_STEPS)
+    cfg = model.cfg
+    off = cfg.num_image_tokens if cfg.family == "vlm" else 0
+    batch = {"tokens": session["tokens"], **session.get("inputs", {})}
+    B = session["tokens"].shape[0]
+    max_len = prompt + len(gen.logits) - 1 + off
+    _, cache = model.prefill(params, batch, max_len)
     sync(torch)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
             _, cache = model.decode_step(params, cache,
-                                         gen.tokens[:, i:i + 1], SERVE_S + i)
+                                         gen.tokens[:, i:i + 1],
+                                         prompt + off + i)
         sync(torch)
         host_ms = (time.perf_counter() - t0) * 1e3 / steps
     del cache
@@ -1357,16 +1422,199 @@ def decode_profile(torch, session: dict, smi: str, steps: int = 4) -> None:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
-        log("  decode profile: the profiler saw no device time")
-        return
+        log(f"  {label}: the profiler saw no device time")
+        return {}
     k10 = sum(r[0] for r in rows if "flash_decode" in r[2])
-    log(f"  decode profile ({steps} steps, B={SERVE_B}, "
-        f"W={SERVE_S + SERVE_STEPS}): {host_ms:.2f} ms per step on the host clock, device busy "
-        f"{busy:.3f} ms per step ({sum(r[1] for r in rows):.0f} kernels), "
+    n_kernels = sum(r[1] for r in rows)
+    log(f"  {label} ({steps} steps, B={B}, max_len={max_len}): "
+        f"{host_ms:.2f} ms per step on the host clock, device busy "
+        f"{busy:.3f} ms per step ({n_kernels:.0f} kernels), "
         f"idle share {1 - busy / host_ms:.3f}; K10 {k10:.3f} ms per step; "
         f"{smi}")
     for ms, n, key in rows[:8]:
         log(f"    {ms:8.3f} ms/step  x{n:5.0f}  {key[:90]}")
+    return {"host_ms": host_ms, "busy_ms": busy, "kernels": n_kernels,
+            "idle": 1 - busy / host_ms, "k10_ms": k10}
+
+
+# ---------------------------------------------------------------------------
+# phase 2g: serving the other families at full width
+# ---------------------------------------------------------------------------
+def _family_cfg(registry, serve, arch: str, depth, prompt: int):
+    """The config serve.main builds for the run (max_seq_len raised to the
+    run's length, the depth cut)."""
+    cfg = registry.get_config(arch)
+    max_len = prompt + FAMILY_STEPS + cfg.num_image_tokens
+    cfg = cfg.with_overrides(max_seq_len=max(cfg.max_seq_len, max_len))
+    return (serve.cut_depth(cfg, depth) if depth else cfg), max_len
+
+
+class RouteLog:
+    """While active, records each MoE routing: every token's expert set
+    (sorted) and the gap between its k-th and (k+1)-th router
+    probabilities."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.route, self.calls = moe, moe.route, []
+
+        def route(cfg, p, x):
+            out = self.route(cfg, p, x)
+            probs = self.torch.softmax((x @ p["router"]).float(), dim=-1)
+            top = probs.topk(cfg.experts_per_token + 1, dim=-1).values
+            self.calls.append((self.torch.sort(out[1], dim=-1).values,
+                               top[:, -2] - top[:, -1]))
+            return out
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+        return False
+
+
+def routing_flips(torch, served, forced, n_moe: int, B: int, S: int,
+                  N: int):
+    """Compare the served run's routings (``n_moe`` prefill calls, then
+    ``n_moe`` per decode step) with the teacher-forced pass's (one call
+    per MoE layer over the B x (S + N) tokens), layer by layer.  Returns
+    (per batch row: some token routed apart, the teacher-forced
+    probability gaps of the tokens routed apart at their row's first such
+    layer).  Below that layer both passes routed the row alike, so its
+    inputs there differ by rounding only; past it, the tokens routed apart
+    carry other expert outputs and may route apart at any gap."""
+    rows = torch.zeros(B, dtype=torch.bool, device=forced[0][0].device)
+    gaps = []
+    for layer in range(n_moe):
+        tf_idx, tf_gap = forced[layer]
+        tf_idx = tf_idx.view(B, S + N, -1)
+        steps = [served[n_moe * (i + 1) + layer][0] for i in range(N)]
+        got = torch.cat([served[layer][0].view(B, S, -1),
+                         torch.stack(steps, 1)], 1)
+        diff = (got != tf_idx).any(-1)
+        gaps.append(tf_gap.view(B, S + N)[diff & ~rows[:, None]])
+        rows |= diff.any(1)
+    return rows, torch.cat(gaps)
+
+
+def families_path(torch, seed: int, counts: dict, smi: str) -> None:
+    """One served run per family (serve.main at full width; the drop-free
+    MoE run through serve.generate on the moe run's weights and prompt);
+    each checked against a teacher-forced ``apply`` (the published-capacity
+    MoE run: its prefill against ``apply`` on the prompt, since a
+    single-token step drops pairs that a batch does not), a decode profile
+    and its peak memory.  ``counts[serve-<run>]`` gets each run's kernel
+    counts."""
+    import math
+    from repro_torch import tree as T
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model, param_shapes
+    moe = None
+    for run, arch, depth, prompt, n_params, _ in FAMILY_RUNS:
+        cfg, max_len = _family_cfg(registry, serve, arch, depth, prompt)
+        n = sum(math.prod(s) for s in T.leaves(param_shapes(cfg)))
+        check(n == n_params, f"{run}: {n} parameters, want {n_params}")
+        full_depth = registry.get_config(arch).num_layers
+        log(f"  {run}: {arch} at its published width, {cfg.num_layers} of "
+            f"{full_depth} layers{'' if depth is None else ' (cut)'}, "
+            f"{n:,} parameters; batch {FAMILY_B}, prompt {prompt}"
+            f"{f' + {cfg.num_image_tokens} image tokens' if cfg.num_image_tokens else ''}"
+            f", {FAMILY_STEPS} decode steps, KV cache {max_len}; {smi}")
+        empty_cache(torch)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        if run == "moe-dropfree":
+            model = build_model(cfg.with_overrides(
+                capacity_factor=DROPFREE_CAPACITY), device=DEVICE)
+            session = dict(moe, model=model)
+            with RouteLog(torch) as served:
+                session["generation"] = serve.generate(
+                    model, session["params"], session["tokens"],
+                    FAMILY_STEPS, max_len=max_len, keep_logits=True,
+                    inputs=session["inputs"])
+            moe = None
+        else:
+            session = {}
+            argv = ["--arch", arch, "--full", "--batch", str(FAMILY_B),
+                    "--prompt-len", str(prompt), "--decode-tokens",
+                    str(FAMILY_STEPS), "--seed", str(seed), "--device",
+                    DEVICE] + ([] if depth is None else
+                               ["--layers", str(depth)])
+            rc = serve.main(argv, session=session)
+            check(rc == 0, f"serve {run}: exit {rc}")
+            check(session["model"].cfg == cfg, f"serve {run}: config")
+        counts[f"serve-{run}"] = kernel_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        gen = session["generation"]
+        check(tuple(gen.tokens.shape) == (FAMILY_B, FAMILY_STEPS + 1),
+              f"serve {run}: tokens {tuple(gen.tokens.shape)}")
+        got = torch.stack(gen.logits, dim=1)
+        check(bool(torch.isfinite(got).all()), f"serve {run}: non-finite")
+        model, params = session["model"], session["params"]
+        if run == "moe":
+            what = "prefill logits vs apply on the prompt"
+            tokens = session["tokens"]
+            got = got[:, :1]
+        else:
+            what = (f"teacher-forced over {FAMILY_STEPS + 1} positions")
+            tokens = torch.cat([session["tokens"],
+                                gen.tokens[:, :FAMILY_STEPS]], 1)
+        with (RouteLog(torch) if run == "moe-dropfree"
+              else contextlib.nullcontext()) as forced:
+            logits, _ = model.apply(params, {"tokens": tokens,
+                                             **session["inputs"]})
+        want = logits[:, prompt - 1:prompt - 1 + got.shape[1]].clone()
+        del logits
+        row_err = (got - want).abs().amax((1, 2))
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        held = torch.ones_like(row_err, dtype=torch.bool)
+        if run == "moe-dropfree":
+            # a top-k near-tie may route a token to another expert set when
+            # the pass has another batch shape (f32 sums in another
+            # order); the row it feeds then differs by more than the
+            # rounding.  Rows whose every token routes alike in both
+            # passes are held to TF_ATOL; each row's first tokens routed
+            # apart must be near-ties; most rows must be held.
+            n_moe = cfg.layer_kinds.count("moe")
+            flipped, gaps = routing_flips(torch, served.calls, forced.calls,
+                                          n_moe, FAMILY_B, prompt,
+                                          FAMILY_STEPS)
+            held = ~flipped
+            worst_gap = float(gaps.max()) if gaps.numel() else 0.0
+            check(worst_gap <= NEAR_TIE, f"serve {run}: a token first "
+                  f"routed apart at a probability gap of {worst_gap:.3g} > "
+                  f"{NEAR_TIE}")
+            check(int(held.sum()) * 2 >= FAMILY_B, f"serve {run}: "
+                  f"{int(flipped.sum())} of {FAMILY_B} rows routed apart")
+            what += (f"; {gaps.numel()} tokens first routed apart by "
+                     f"near-ties (gap <= {worst_gap:.3g}) in rows "
+                     f"{flipped.nonzero().flatten().tolist()}, whose max "
+                     f"|dlogit| is {float(row_err[flipped].max()) if flipped.any() else 0.0:.3g}"
+                     f"; the {int(held.sum())} other rows")
+            del served, forced
+        err = float(row_err[held].max())
+        check(err <= TF_ATOL, f"serve {run}: {what}: max |dlogit| "
+              f"{err:.3g} > {TF_ATOL}")
+        del got, want, tokens
+        empty_cache(torch)
+        prof = decode_profile(torch, session, smi, prompt,
+                              label=f"{run} decode profile")
+        decode_ms = gen.decode_s * 1e3 / FAMILY_STEPS
+        log(f"  serve {run}: prefill {gen.prefill_s * 1e3:.1f} ms "
+            f"({FAMILY_B * prompt / gen.prefill_s:.0f} tok/s); decode "
+            f"{decode_ms:.2f} ms/step ({FAMILY_B * 1e3 / decode_ms:.0f} "
+            f"tok/s); device {prof.get('busy_ms', float('nan')):.3f} "
+            f"ms/step, idle share {prof.get('idle', float('nan')):.3f}; "
+            f"peak {peak:.2f} GiB; {what}: max |dlogit| {err:.3g} (argmax "
+            f"agreement {agree:.3f}); {smi}")
+        if run == "moe":
+            moe = session
+        del session, gen, model, params
+        empty_cache(torch)
 
 
 # ---------------------------------------------------------------------------
@@ -1701,32 +1949,39 @@ def _cycled(fn, n: int):
 
 
 def flash_decode_times(torch, launches: int) -> dict:
-    """K10 at the serve shape and decode_32k: kernel, plain version, one
-    ``scaled_dot_product_attention`` call; bound by bytes."""
+    """K10 at each of ``FD_SHAPES``: kernel, plain version, one
+    ``scaled_dot_product_attention`` call; bound by bytes.  The serve
+    shape's numbers are the entry's, the others nested under their
+    names."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as kfd
-    H, KV, hd = 12, 2, 128
     g = torch.Generator(device="cuda").manual_seed(3)
     res = {}
-    for shape, B, W in FD_SHAPES:
-        # the serve path reads each layer's 34 MB cache cold (the weights
-        # stream between layers); 8 copies exceed the 50 MB L2
-        nbuf = 8 if shape == "serve" else 1
+    for shape, B, H, KV, hd, W, window in FD_SHAPES:
+        nbytes = 2 * B * W * KV * hd * 4 + 2 * B * H * hd * 4 + W * 4
+        # a decode step reads each layer's cache cold (the weights stream
+        # between layers): caches under 100 MB take 8 copies, past the
+        # 50 MB L2
+        nbuf = 8 if nbytes < 1e8 else 1
         q = torch.randn(B, H, hd, generator=g, device="cuda") * hd ** -0.5
         ks = [torch.randn(B, W, KV, hd, generator=g, device="cuda")
               for _ in range(nbuf)]
         vs = [torch.randn(B, W, KV, hd, generator=g, device="cuda")
               for _ in range(nbuf)]
-        slot = torch.arange(W, device="cuda", dtype=torch.int32)
-        pos = W - 1
-        got = kfd.flash_decode(q, ks[0], vs[0], slot, pos)
-        want = kfd.flash_decode_plain(q, ks[0], vs[0], slot, pos)
+        pos = W - 1 + (32 if window else 0)  # a ring wrapped 32 slots
+        slot = ring_slots(torch, W, pos, W)
+        got = kfd.flash_decode(q, ks[0], vs[0], slot, pos, window=window)
+        want = kfd.flash_decode_plain(q, ks[0], vs[0], slot, pos,
+                                      window=window)
         err = float((got - want).abs().max())
         check(torch.allclose(got, want, **FD_TOL),
               f"flash_decode != plain at {shape}: {err:.3g}")
         # the library yardstick: the rep query heads of a kv head as the
         # query length of one SDPA over (B, KV) heads; mask from slot_pos
-        mask = ((slot >= 0) & (slot <= pos)).view(1, 1, 1, W)
+        valid = (slot >= 0) & (slot <= pos)
+        if window:
+            valid &= (pos - slot) < window
+        mask = valid.view(1, 1, 1, W)
 
         def sdpa(i):
             return F.scaled_dot_product_attention(
@@ -1734,16 +1989,15 @@ def flash_decode_times(torch, launches: int) -> dict:
                 vs[i].permute(0, 2, 1, 3), attn_mask=mask, scale=1.0)
         lib_err = float((sdpa(0).reshape(B, H, hd) - want).abs().max())
         del got, want
-        reps = 50 if shape == "serve" else 10
-        kernel = _cycled(lambda i: kfd.flash_decode(q, ks[i], vs[i], slot,
-                                                    pos), nbuf)
+        reps = 10 if shape == "decode_32k" else 50
+        kernel = _cycled(lambda i: kfd.flash_decode(
+            q, ks[i], vs[i], slot, pos, window=window), nbuf)
         ms = _device_ms(torch, kernel, reps)
         call_ms = _cuda_ms(torch, kernel, reps)  # host launch cost included
         plain_ms = _device_ms(torch, _cycled(
-            lambda i: kfd.flash_decode_plain(q, ks[i], vs[i], slot, pos),
-            nbuf), 3)
+            lambda i: kfd.flash_decode_plain(q, ks[i], vs[i], slot, pos,
+                                             window=window), nbuf), 3)
         lib_ms = _device_ms(torch, _cycled(sdpa, nbuf), reps)
-        nbytes = 2 * B * W * KV * hd * 4 + 2 * B * H * hd * 4 + W * 4
         # two products, and mask/max/exp/sum per score
         ops = 4 * B * H * W * hd + 5 * B * H * W
         e = _entry("flash_decode",
@@ -1756,21 +2010,22 @@ def flash_decode_times(torch, launches: int) -> dict:
             sms=torch.cuda.get_device_properties(0).multi_processor_count,
             per_sm=kfd.ctas_per_sm("cuda", hd, False))
         e["splits"] = nsplit
-        log(f"  flash_decode {shape} (B={B} H={H} KV={KV} hd={hd} W={W}, "
-            f"f32, {nsplit} splits merged in the launch): {ms:.4f} ms on "
-            f"the device, "
+        log(f"  flash_decode {shape} (B={B} H={H} KV={KV} hd={hd} W={W}"
+            f"{f' window={window}' if window else ''}, f32, {nsplit} "
+            f"splits merged in the launch): {ms:.4f} ms on the device, "
             f"{call_ms:.4f} ms per call back to back (bound "
-            f"{e['bound_ms']:.4f} ms by {e['bound_by']}); plain "
-            f"{plain_ms:.3f} ms; SDPA "
+            f"{e['bound_ms']:.4f} ms by {e['bound_by']}, "
+            f"{nbytes / 1e6:.1f} MB); plain {plain_ms:.3f} ms; SDPA "
             f"{lib_ms:.4f} ms (max |err| {lib_err:.3g}); kernel max |err| "
             f"{err:.3g}")
         res[shape] = e
         del q, ks, vs, slot
         torch.cuda.empty_cache()
     entry = dict(res["serve"])
-    entry["decode_32k"] = {k: res["decode_32k"][k] for k in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "max_abs_err")}
+    for shape, *_ in FD_SHAPES[1:]:
+        entry[shape] = {k: res[shape][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "splits")}
     return entry
 
 
@@ -2154,6 +2409,9 @@ def main() -> int:
     with Phase("phase 2c: serving qwen2-1.5b at full width and depth"):
         serve_path(torch, args.seed, counts, smi)
 
+    with Phase("phase 2g: serving the other families at full width"):
+        families_path(torch, args.seed, counts, smi)
+
     with Phase("phase 2d: training qwen2-1.5b at full width and depth"):
         train_path(torch, args.seed, counts, smi)
 
@@ -2196,6 +2454,12 @@ def main() -> int:
         for name, _ in SERVE_RUNS:
             want[f"serve-{name}"] = dict(zero)
             want[f"serve-{name}"]["flash_decode"] = SERVE_LAYERS * SERVE_STEPS
+        # the other families: K10 once per attention layer per step (the
+        # whisper decoder: a self and a cross attention per layer); none in
+        # mamba2
+        for run, *_, per_step in FAMILY_RUNS:
+            want[f"serve-{run}"] = dict(zero,
+                                        flash_decode=per_step * FAMILY_STEPS)
         # training, one chunk of 4 clients a round: K3 once per leaf, K6
         # once per client leaf and K7 once per leaf at bits 32, K8 once per
         # leaf at bits 0
@@ -2244,6 +2508,7 @@ def main() -> int:
                 launches[k] = launches.get(k, 0) + v
         check(all(v > 0 for v in launches.values()),
               f"a kernel never launched on the main path: {launches}")
+
 
     with Phase("phase 4: device and kernel times"):
         entries = kernel_times(torch, launches)

@@ -5,9 +5,12 @@ module imports neither JAX nor the JAX package:
 
   ``params_from_numpy``      a parameter tree (nested dicts of arrays) ->
                              the port's dict of f32 tensors on ``device``;
-  ``cache_from_numpy``       a decode cache (nested dicts of ``k``/``v``/
-                             ``pos`` arrays, stacked or per layer) -> the
-                             port's cache (``pos`` int32);
+  ``cache_from_numpy``       a decode cache of any family, stacked or per
+                             layer (KV ``k``/``v``/``pos``; Mamba-2
+                             ``conv``/``ssm``; RG-LRU ``h``/``conv``;
+                             enc-dec ``memory``, ``self``, ``cross_k``/
+                             ``cross_v``) -> the port's cache (``pos``
+                             int32, the rest keeps its dtype);
   ``server_state_from_numpy`` a server-optimizer state (``step``, and
                              FedAvgM/FedAdam/FedAdagrad moments) -> tensors;
   ``fl_state_from_numpy``    a sync round's ``FLState`` (params, server
@@ -41,8 +44,9 @@ def params_from_numpy(params, device="cpu"):
 
 
 def cache_from_numpy(cache, device="cpu"):
-    """A JAX decode cache -> the port's (same tree and layout; ``k``/``v``
-    keep their dtype, ``pos`` is int32)."""
+    """A JAX decode cache -> the port's (same tree and layout, every leaf
+    a contiguous tensor as K10 takes it; ``pos`` is int32, the state
+    leaves keep their dtype)."""
     paths, leaves = T.flatten(cache)
     return T.unflatten(paths, [
         _tensor(x, device, torch.int32 if path[-1] == "pos" else None)

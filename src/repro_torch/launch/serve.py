@@ -10,8 +10,13 @@ decodes N tokens per request against the KV cache.  Runs on the GPU unless
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       --reduced --batch 4 --prompt-len 32 --decode-tokens 16 [--device cpu]
 
-``--window N`` serves the sliding-window (ring-buffer cache) decode variant
-of a full-attention model.  Only the dense family is ported.
+Every registry architecture serves: the VLM's stub patch embeddings and
+the audio model's stub frame embeddings are ``0.02 * normal`` draws from the
+prompt's own key, as the reference draws them, and a VLM's decode positions
+start after its image tokens.  ``--window N`` serves the sliding-window
+(ring-buffer cache) decode variant of a full-attention model; ``--layers
+N`` cuts the depth to the first N layers (a hybrid keeps its pattern's
+first N kinds), for a model whose full depth does not fit one card.
 """
 from __future__ import annotations
 
@@ -50,6 +55,29 @@ def dequantize_int8(qparams):
     return T.tree_map(dq, qparams)
 
 
+def stub_inputs(cfg, key, batch: int, device) -> dict:
+    """The reference's stub frontends: ``patch_embeds`` (VLM) or
+    ``audio_embeds`` (audio), ``0.02 * normal(key, ...)`` from the key that
+    also draws the prompt; ``{}`` for a text-only model."""
+    shape = {"vlm": (batch, cfg.num_image_tokens, cfg.d_model),
+             "audio": (batch, cfg.encoder_seq, cfg.d_model)}.get(cfg.family)
+    if shape is None:
+        return {}
+    z = prf.normal(key, shape, device=device)
+    name = "patch_embeds" if cfg.family == "vlm" else "audio_embeds"
+    return {name: z * torch.tensor(0.02, dtype=torch.float32,
+                                   device=z.device)}
+
+
+def cut_depth(cfg, layers: int):
+    """``cfg`` with its first ``layers`` layers (a block pattern cut to
+    match)."""
+    pattern = cfg.block_pattern
+    return cfg.with_overrides(
+        num_layers=layers,
+        block_pattern=None if pattern is None else pattern[:layers])
+
+
 class Generation(NamedTuple):
     """A greedy run: ``tokens`` (B, 1 + decode_tokens), the prefill's pick
     first; ``logits`` the prefill's last-position logits then each decode
@@ -68,17 +96,22 @@ def _sync(dev: torch.device) -> None:
 
 
 def generate(model, params, tokens: torch.Tensor, decode_tokens: int, *,
-             max_len: Optional[int] = None,
-             keep_logits: bool = False) -> Generation:
-    """Prefill ``tokens`` (B, S), then ``decode_tokens`` greedy steps at
-    positions S, S+1, ... against the cache (``max_len`` deep, default
-    S + decode_tokens)."""
+             max_len: Optional[int] = None, keep_logits: bool = False,
+             inputs: Optional[dict] = None) -> Generation:
+    """Prefill ``tokens`` (B, S) with the batch's other ``inputs``
+    (:func:`stub_inputs`), then ``decode_tokens`` greedy steps at positions
+    S + off, S + off + 1, ... (``off`` the VLM's image tokens, else 0)
+    against the cache (``max_len`` deep, default S + decode_tokens +
+    off)."""
     B, S = tokens.shape
-    max_len = max_len or S + decode_tokens
+    cfg = model.cfg
+    off = cfg.num_image_tokens if cfg.family == "vlm" else 0
+    max_len = max_len or S + decode_tokens + off
     dev = tokens.device
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
+    logits, cache = model.prefill(params, {"tokens": tokens, **(inputs or {})},
+                                  max_len)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     kept = [logits[:, -1]] if keep_logits else None
@@ -86,7 +119,7 @@ def generate(model, params, tokens: torch.Tensor, decode_tokens: int, *,
     outs = [tok]
     t0 = time.perf_counter()
     for i in range(decode_tokens):
-        logits, cache = model.decode_step(params, cache, tok, S + i)
+        logits, cache = model.decode_step(params, cache, tok, S + off + i)
         tok = logits[:, 0].argmax(-1)[:, None]
         outs.append(tok)
         if keep_logits:
@@ -98,8 +131,8 @@ def generate(model, params, tokens: torch.Tensor, decode_tokens: int, *,
 
 def main(argv=None, *, session: Optional[dict] = None):
     """The serve CLI.  ``session``, if a dict, receives the run's ``model``,
-    ``params``, prompt ``tokens`` and ``generation`` (with every step's
-    logits), so a caller can check what was served."""
+    ``params``, prompt ``tokens``, stub ``inputs`` and ``generation`` (with
+    every step's logits), so a caller can check what was served."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--reduced", action="store_true", default=True)
@@ -112,13 +145,15 @@ def main(argv=None, *, session: Optional[dict] = None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--window", type=int, default=None,
                     help="sliding-window decode variant (ring-buffer cache)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the first N layers only (a depth cut)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     if args.checkpoint:
         raise NotImplementedError(
             "--checkpoint: checkpoint restore is not ported yet (ROADMAP "
-            "Queue 1, item 11, with checkpoint/checkpoint.py)")
+            "Queue 1, item 1, with checkpoint/checkpoint.py)")
     from repro_torch.configs import registry
     from repro_torch.models.model import build_model
 
@@ -126,6 +161,8 @@ def main(argv=None, *, session: Optional[dict] = None):
     cfg = registry.get_config(args.arch, reduced=args.reduced)
     if args.window is not None:
         cfg = cfg.decode_variant(args.window)
+    if args.layers is not None:
+        cfg = cut_depth(cfg, args.layers)
     max_len = args.prompt_len + args.decode_tokens + cfg.num_image_tokens
     cfg = cfg.with_overrides(max_seq_len=max(cfg.max_seq_len, max_len))
     model = build_model(cfg, device=dev)
@@ -145,8 +182,10 @@ def main(argv=None, *, session: Optional[dict] = None):
 
     B, S = args.batch, args.prompt_len
     tokens = prf.randint(key, (B, S), 0, cfg.vocab_size, device=dev).long()
+    inputs = stub_inputs(cfg, key, B, dev)
     gen = generate(model, params, tokens, args.decode_tokens,
-                   max_len=max_len, keep_logits=session is not None)
+                   max_len=max_len, keep_logits=session is not None,
+                   inputs=inputs)
     print(f"prefill: {B}x{S} in {gen.prefill_s * 1e3:.1f} ms "
           f"({B * S / gen.prefill_s:.0f} tok/s)")
     print(f"decode: {args.decode_tokens} steps in {gen.decode_s * 1e3:.1f} ms "
@@ -154,7 +193,7 @@ def main(argv=None, *, session: Optional[dict] = None):
     print("sample:", gen.tokens[0, :10].tolist())
     if session is not None:
         session.update(model=model, params=params, tokens=tokens,
-                       generation=gen)
+                       inputs=inputs, generation=gen)
     return 0
 
 

@@ -8,8 +8,9 @@ accounting.  Runs on the GPU unless ``--device cpu``:
       --rounds 100 [--device cpu]
 
 Both workloads' weights, every round key and the round's draws are the
-reference's (``kernels.prf``).  Only the dense family is ported;
-``--checkpoint-dir`` waits for the checkpoint module.
+reference's (``kernels.prf``).  Training runs the dense family and the
+classifier; the other families serve (``launch.serve``) but do not train
+yet, and ``--checkpoint-dir`` waits for the checkpoint module.
 """
 from __future__ import annotations
 
@@ -56,7 +57,7 @@ def main(argv=None, *, session: Optional[dict] = None):
     if args.checkpoint_dir:
         raise NotImplementedError(
             "--checkpoint-dir: checkpointing is not ported yet (ROADMAP "
-            "Queue 1, item 11, with checkpoint/checkpoint.py)")
+            "Queue 1, item 1, with checkpoint/checkpoint.py)")
     from repro_torch.configs.base import FLConfig
     from repro_torch.core.fl.accountant import RDPAccountant
     from repro_torch.core.fl.round import build_round_step, init_fl_state
@@ -132,6 +133,11 @@ def _llm_workload(args, dev):
     from repro_torch.models.model import build_model
 
     cfg = registry.get_config(args.arch, reduced=args.reduced)
+    if cfg.family != "dense" or cfg.block_pattern is not None:
+        raise NotImplementedError(
+            f"--arch {args.arch}: training the {cfg.family} family is not "
+            "ported yet (ROADMAP Queue 1, item 2, with optim/); it serves "
+            "through repro_torch.launch.serve")
     cfg = cfg.with_overrides(max_seq_len=max(args.seq_len, 64))
     model = build_model(cfg, device=dev)
 

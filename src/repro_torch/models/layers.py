@@ -8,10 +8,9 @@ the JAX package's layouts at every public function: activations
 
 The large products (QKV, output, MLP, unembed) and the chunked prefill
 attention are plain PyTorch, as the reference leaves them to XLA; the
-decode attention runs the K10 kernel (``kernels.flash_decode``) on CUDA
-tensors.  Unlike the reference, the KV-cache functions update the cache
-IN PLACE and return the same dict.  Cross attention (the encoder-decoder
-family) is not ported yet.
+decode attention, self and cross, runs the K10 kernel
+(``kernels.flash_decode``) on CUDA tensors.  Unlike the reference, the
+KV-cache functions update the cache IN PLACE and return the same dict.
 """
 from __future__ import annotations
 
@@ -37,6 +36,15 @@ def normal_leaf(key, shape, scale: float, device=None) -> torch.Tensor:
     Python-float scale rounds to f32, as JAX multiplies by it)."""
     z = prf.normal(key, tuple(shape), device=device)
     return z * torch.tensor(scale, dtype=torch.float32, device=z.device)
+
+
+def normal_over(key, shape, divisor: float, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, f32) / divisor``, bit-equal to the
+    reference's init as ``build_model(cfg).init`` runs it op by op: a true
+    f32 division by ``f32(divisor)`` (under ``jit`` XLA multiplies by the
+    rounded reciprocal instead, which moves some values by an ulp)."""
+    z = prf.normal(key, tuple(shape), device=device)
+    return z / torch.tensor(divisor, dtype=torch.float32, device=z.device)
 
 
 # ---------------------------------------------------------------------------
@@ -66,6 +74,13 @@ def apply_norm(cfg, p, x, eps: float = 1e-6):
         ms = xf.square().mean(-1, keepdim=True)
         out = xf * torch.rsqrt(ms + eps) * p["scale"]
     return out.to(x.dtype)
+
+
+def rmsnorm_gated(x, z, scale, eps: float = 1e-6):
+    """Mamba-2 style gated RMSNorm: RMSNorm(x * silu(z))."""
+    xf = (x * F.silu(z)).float()
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -100,10 +115,11 @@ def attention_shapes(cfg, lead=()):
     return {k: torch.Size(tuple(lead) + v) for k, v in shapes.items()}
 
 
-def init_attention(key, cfg, device=None):
+def init_attention(key, cfg, device=None, d: Optional[int] = None):
     """The reference's ``init_attention``: ``split(key, 4)`` for wq, wk,
     wv, wo; zero biases."""
-    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    d = d or cfg.d_model
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     k1, k2, k3, k4 = prf.split(key, 4)
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(h * hd)
     p = {"wq": normal_leaf(k1, (d, h, hd), s_in, device),
@@ -150,6 +166,12 @@ def attention(cfg, p, x, positions, *, causal: bool = True,
               window: Optional[int] = None, return_kv: bool = False):
     """Training/prefill attention, chunked over queries (memory-safe).
 
+    Where ``S`` is not a multiple of the chunk, the reference falls back to
+    one chunk of ``S`` queries; the port keeps the chunk and runs a shorter
+    last one.  Each query row is computed the same way either way, and the
+    score tensor stays ``chunk x S`` (a 3104-token VLM sequence would
+    otherwise hold a 20 GB one).
+
     return_kv: also return the (k, v) computed here (prefill cache fill).
     """
     B, S, _ = x.shape
@@ -157,8 +179,6 @@ def attention(cfg, p, x, positions, *, causal: bool = True,
     q = q * cfg.head_dim ** -0.5
 
     chunk = cfg.attn_q_chunk or ATTN_QUERY_CHUNK
-    if S % chunk != 0:
-        chunk = S
     outs = []
     for c0 in range(0, S, chunk):
         qpos = positions[c0:c0 + chunk]
@@ -198,8 +218,27 @@ def fill_kv_cache(cfg, cache, k, v, positions):
     return cache
 
 
+def _cross_decode(cfg, p, x, cross_kv):
+    """One decoder token attending, unmasked and without RoPE, over the
+    encoder's ``(k, v)`` (B, S_enc, KV, hd): K10 with every slot valid
+    (``slot_pos = arange(S_enc)``, ``pos = S_enc - 1``, no window), which
+    is the reference's plain softmax over all frames.  Only q is
+    projected: the reference's new k/v are unused there."""
+    k, v = cross_kv
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+    q = q * cfg.head_dim ** -0.5
+    S = k.shape[1]
+    slot_pos = torch.arange(S, dtype=torch.int32, device=x.device)
+    out = K.flash_decode(q[:, 0].float().contiguous(), k, v, slot_pos, S - 1)
+    out = out.to(dt)[:, None]
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+
+
 def attention_decode(cfg, p, x, cache, pos: int, *,
-                     window: Optional[int] = None):
+                     window: Optional[int] = None, cross_kv=None):
     """Single-token decode against a (ring-buffer or full) KV cache.
 
     x: (B, 1, d); cache: {'k': (B, W, KV, hd), 'v': ..., 'pos': (W,) int32};
@@ -207,7 +246,13 @@ def attention_decode(cfg, p, x, cache, pos: int, *,
     new k/v/pos at slot ``pos`` (``pos % W`` when windowed; clamped to
     ``W - 1`` as the reference's ``dynamic_update_slice`` clamps) IN PLACE,
     then runs K10 over the cache.  Returns (out (B,1,d), cache).
+
+    cross_kv: the encoder's ``(k, v)``, each (B, S_enc, KV, hd) contiguous:
+    cross attention through K10 over every frame; ``cache`` is returned
+    untouched.
     """
+    if cross_kv is not None:
+        return _cross_decode(cfg, p, x, cross_kv), cache
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _qkv(cfg, p, x, positions, cfg.pos_emb == "rope")
     q = q * cfg.head_dim ** -0.5
@@ -250,10 +295,10 @@ def mlp_shapes(cfg, d_ff: int, lead=()):
     return {k: torch.Size(tuple(lead) + v) for k, v in shapes.items()}
 
 
-def init_mlp(key, cfg, d_ff: int, device=None):
+def init_mlp(key, cfg, d_ff: int, device=None, d: Optional[int] = None):
     """The reference's ``init_mlp``: ``split(key, 3)`` for w_in, w_out and
     (swiglu) w_gate."""
-    d = cfg.d_model
+    d = d or cfg.d_model
     k1, k2, k3 = prf.split(key, 3)
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(d_ff)
     p = {"w_in": normal_leaf(k1, (d, d_ff), s_in, device),
@@ -315,6 +360,15 @@ def unembed(cfg, p, x):
     if cfg.tie_embeddings:
         return x @ p["embed"].to(x.dtype).T
     return x @ p["unembed"].to(x.dtype)
+
+
+def sincos_positions(seq_len: int, d_model: int, device=None):
+    """Fixed sinusoidal embeddings (whisper encoder)."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d_model // 2, dtype=torch.float32,
+                       device=device)[None, :]
+    angle = pos / torch.pow(10000.0, 2 * dim / d_model)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Model facade of the dense decoder family (port of ``repro.models.model``).
+"""Model facade: every registry architecture behind one interface (port of
+``repro.models.model``).
 
 ``build_model(cfg)`` returns a ``Model`` with the reference's interface:
 
@@ -9,10 +10,12 @@
   prefill(params, batch, max_len)   -> (logits, cache)
   decode_step(params, cache, tokens, pos) -> (logits, cache)
 
-Only ``family="dense"`` is ported (qwen2-1.5b, deepseek-7b,
-deepseek-coder-33b, minitron-4b); the other families raise
-``NotImplementedError``.  ``decode_step`` updates the cache in place (and
-returns it); ``pos`` is a Python int.
+for the decoder families (dense, moe, ssm, hybrid, vlm) and the
+encoder-decoder (audio).  A VLM batch may carry ``patch_embeds`` (B,
+n_image, d), fused ahead of the text tokens (the logits are cut back to the
+text positions); an audio batch carries ``audio_embeds`` (B, encoder_seq,
+d).  ``decode_step`` updates the cache in place (and returns it); ``pos``
+is a Python int.
 
 ``build_mlp_classifier(cfg)`` builds the paper's own model, the dense-feature
 MLP binary classifier (``configs/mlp.py``); its ``init(key)`` draws the
@@ -22,10 +25,14 @@ bit.
 ``param_shapes`` gives the exact leaf paths and shapes of the JAX init, and
 ``init(key)`` (``init_params(cfg, seed)`` for ``PRNGKey(seed)``) draws the
 reference's own weights from the same key words, bit for bit: the same key
-tree (``fold_in``/``split``) and ``jax.random.normal`` draws, times the same
-f32 scales; zero biases, unit norm scales.  Layout (dense, ``num_layers >
-1``): the layers are stacked under ``stack.scan`` with the layer axis
-leading, as the JAX ``vmap``-ed init produces them::
+tree (``fold_in``/``split``, one ``split`` key per expert and per scanned
+layer where the reference ``vmap``s) and ``jax.random.normal`` draws, times
+(or, where the reference divides, over) the same f32 scales; zero biases,
+unit norm scales.  Three leaves go through transcendental functions whose
+last bit torch and XLA round apart: the RG-LRU's ``lambda`` and Mamba-2's
+``dt_bias`` and ``A_log``.  Layout (dense, ``num_layers > 1``): the layers
+are stacked under ``stack.scan`` with the layer axis leading, as the JAX
+``vmap``-ed init produces them::
 
   embedding.embed                       (vocab, d)
   final_norm.scale                      (d,)
@@ -35,6 +42,12 @@ leading, as the JAX ``vmap``-ed init produces them::
   stack.scan.mlp.{w_in, w_gate}         (L, d, d_ff)              w_gate: swiglu
   stack.scan.mlp.w_out                  (L, d_ff, d)
   stack.scan.{norm1, norm2}.scale       (L, d)
+
+A MoE stack has ``stack.scan.moe.{router, experts.*, shared.*}`` (experts
+stacked after the layer axis) behind a dense ``stack.layer_0`` when
+``first_k_dense``; a hybrid ``block_pattern`` is ``stack.layer_{i}``
+throughout; the encoder-decoder is ``embedding``, ``enc_{i}``, ``enc_norm``,
+``dec_{i}`` and ``dec_norm``.
 """
 from __future__ import annotations
 
@@ -44,6 +57,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.kernels import prf
+from repro_torch.models import encdec as E
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -58,50 +72,54 @@ class Model(NamedTuple):
     decode_step: Callable
 
 
-def _check_dense(cfg, what: str) -> None:
-    if cfg.family != "dense" or cfg.block_pattern is not None:
-        raise NotImplementedError(
-            f"{what}: only the dense family is ported (got {cfg.family!r}); "
-            "moe, ssm, hybrid, vlm and audio are ROADMAP Queue 1, item 11")
-
-
 def param_shapes(cfg) -> Dict:
     """Nested dict of ``torch.Size`` — the JAX init's tree, leaf for leaf."""
-    _check_dense(cfg, "param_shapes")
+    if cfg.family == "audio":
+        return E.encdec_shapes(cfg)
     return {"embedding": L.embedding_shapes(cfg),
             "stack": T.stack_shapes(cfg),
             "final_norm": L.norm_shapes(cfg, cfg.d_model)}
 
 
 def init_params(cfg, seed: int = 0, device=None) -> Dict:
-    """``build_model(cfg).init(PRNGKey(seed))`` of the reference, bit-equal,
-    on ``device`` (default the GPU)."""
+    """``build_model(cfg).init(PRNGKey(seed))`` of the reference, bit-equal
+    (but for the three transcendental leaves), on ``device`` (default the
+    GPU)."""
     return init_from_key(cfg, prf.PRNGKey(seed), _device.resolve(device))
 
 
 def init_from_key(cfg, key, device) -> Dict:
-    """The reference's dense init from key words: the embedding from
-    ``fold_in(key, 0)``, the stack from ``fold_in(key, 1)``."""
-    _check_dense(cfg, "init")
+    """The reference's init from key words: for a decoder, the embedding
+    from ``fold_in(key, 0)``, the stack from ``fold_in(key, 1)``; the
+    encoder-decoder's own tree (``encdec.init_encdec``)."""
+    if cfg.family == "audio":
+        return E.init_encdec(key, cfg, device)
     return {"embedding": L.init_embedding(prf.fold_in(key, 0), cfg, device),
             "stack": T.init_stack(prf.fold_in(key, 1), cfg, device),
             "final_norm": L.init_norm(cfg, cfg.d_model, device)}
 
 
 def _embed_inputs(cfg, params, batch, dtype):
+    """Token embedding, with the VLM's patch embeddings fused ahead of the
+    text (early fusion) and learned positions."""
     emb = params["embedding"]
     x = L.embed_tokens(cfg, emb, batch["tokens"], dtype)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(dtype), x], dim=1)
     if cfg.pos_emb == "learned":
         x = x + emb["pos_embed"][: x.shape[1]].to(dtype)
     return x
 
 
-def build_model(cfg, *, device=None) -> Model:
-    """The dense family's model on ``device`` (default the GPU): ``init`` and
+def build_model(cfg, *, use_ragged_moe: bool = False, device=None) -> Model:
+    """The model of ``cfg`` on ``device`` (default the GPU): ``init`` and
     ``init_cache`` allocate there; the other functions run where their
-    inputs are."""
-    _check_dense(cfg, "build_model")
+    inputs are.  ``use_ragged_moe`` selects the drop-free MoE dispatch."""
+    if use_ragged_moe and not cfg.moe_ragged:
+        cfg = cfg.with_overrides(moe_ragged=True)
     dev = _device.resolve(device)
+    if cfg.family == "audio":
+        return _build_encdec(cfg, dev)
     dtype = getattr(torch, cfg.compute_dtype)
 
     def init(key):
@@ -110,8 +128,11 @@ def build_model(cfg, *, device=None) -> Model:
     def apply(params, batch):
         x = _embed_inputs(cfg, params, batch, dtype)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, aux = T.apply_stack(cfg, params["stack"], x, positions)
+        x, aux = T.apply_stack(cfg, params["stack"], x, positions,
+                               use_ragged_moe=use_ragged_moe)
         x = L.apply_norm(cfg, params["final_norm"], x)
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            x = x[:, batch["patch_embeds"].shape[1]:]  # text positions
         return L.unembed(cfg, params["embedding"], x), aux
 
     def loss_fn(params, batch):
@@ -139,6 +160,36 @@ def build_model(cfg, *, device=None) -> Model:
         x, cache = T.decode_stack(cfg, params["stack"], x, cache, pos)
         x = L.apply_norm(cfg, params["final_norm"], x)
         return L.unembed(cfg, emb, x), cache
+
+    return Model(cfg, init, apply, loss_fn, init_cache, prefill, decode_step)
+
+
+def _build_encdec(cfg, dev) -> Model:
+    dtype = getattr(torch, cfg.compute_dtype)
+
+    def init(key):
+        return init_from_key(cfg, key, dev)
+
+    def apply(params, batch):
+        logits = E.apply_encdec(cfg, params, batch)
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=logits.device)
+
+    def loss_fn(params, batch):
+        logits, aux = apply(params, batch)
+        labels = batch.get("labels", batch["tokens"])
+        ce = L.cross_entropy(logits, labels, batch.get("loss_mask"))
+        return ce, {"ce": ce, "aux": aux}
+
+    def init_cache(batch_size, max_len):
+        return E.init_encdec_cache(cfg, batch_size, max_len, dtype, dev)
+
+    def prefill(params, batch, max_len):
+        logits, cache = E.prefill_encdec(cfg, params, batch, max_len, dtype)
+        return logits[:, -1:], cache
+
+    def decode_step(params, cache, tokens, pos: int):
+        return E.decode_step_encdec(cfg, params, cache, tokens, pos)
 
     return Model(cfg, init, apply, loss_fn, init_cache, prefill, decode_step)
 

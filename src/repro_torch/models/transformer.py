@@ -1,15 +1,15 @@
 """Decoder stacks: block init/apply/prefill/decode and the layer-stack layout.
 
-Port of ``repro.models.transformer`` for the dense block kinds (``attn``,
-``local_attn``); the moe, ssm and rglru kinds raise ``NotImplementedError``
-until their slices land (ROADMAP Queue 1, item 11).
+Port of ``repro.models.transformer`` for every block kind: ``attn``,
+``local_attn``, ``moe``, ``ssm`` and ``rglru``.
 
 The stack layout is the reference's: a homogeneous stack deeper than one
 layer (``_is_scannable``) keeps its layers' parameters and caches stacked
 under ``scan`` with the layer axis leading, after ``layer_{i}`` entries for
-any ``first_k_dense`` head; other stacks are ``layer_{i}`` throughout.  A
+any ``first_k_dense`` head (deepseek-moe's dense ``layer_0``); other stacks
+(a hybrid ``block_pattern``, one layer) are ``layer_{i}`` throughout.  A
 Python loop over the layer axis (views, no copies) replaces ``lax.scan``.
-Decode caches are updated in place.
+Decode caches (KV, SSM and RG-LRU states) are updated in place.
 """
 from __future__ import annotations
 
@@ -20,15 +20,11 @@ import torch
 from repro_torch import tree as T
 from repro_torch.kernels import prf
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.models import rglru as R
+from repro_torch.models import ssm as S
 
-_DENSE_KINDS = ("attn", "local_attn")
-
-
-def _check_kind(kind: str) -> None:
-    if kind not in _DENSE_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP Queue 1, item "
-            f"11); the port runs {_DENSE_KINDS}")
+_ATTN_KINDS = ("attn", "local_attn", "moe")
 
 
 def _window(cfg, kind: str):
@@ -42,68 +38,167 @@ def _window(cfg, kind: str):
 def block_shapes(cfg, kind: str, lead=()) -> Dict:
     """The parameter tree of one block as ``torch.Size`` leaves; ``lead``
     prefixes every shape (the stacked layer axis)."""
-    _check_kind(kind)
-    return {
-        "norm1": L.norm_shapes(cfg, cfg.d_model, lead),
-        "attn": L.attention_shapes(cfg, lead),
-        "norm2": L.norm_shapes(cfg, cfg.d_model, lead),
-        "mlp": L.mlp_shapes(cfg, cfg.d_ff, lead),
-    }
+    d = cfg.d_model
+    if kind in ("attn", "local_attn"):
+        return {"norm1": L.norm_shapes(cfg, d, lead),
+                "attn": L.attention_shapes(cfg, lead),
+                "norm2": L.norm_shapes(cfg, d, lead),
+                "mlp": L.mlp_shapes(cfg, cfg.d_ff, lead)}
+    if kind == "moe":
+        return {"norm1": L.norm_shapes(cfg, d, lead),
+                "attn": L.attention_shapes(cfg, lead),
+                "norm2": L.norm_shapes(cfg, d, lead),
+                "moe": M.moe_shapes(cfg, lead)}
+    if kind == "ssm":
+        return {"norm1": L.norm_shapes(cfg, d, lead),
+                "mamba": S.mamba2_shapes(cfg, lead)}
+    if kind == "rglru":
+        return {"norm1": L.norm_shapes(cfg, d, lead),
+                "rec": R.rglru_shapes(cfg, lead),
+                "norm2": L.norm_shapes(cfg, d, lead),
+                "mlp": L.mlp_shapes(cfg, cfg.d_ff, lead)}
+    raise ValueError(kind)
 
 
 def init_block(key, cfg, kind: str, device=None):
-    """The reference's ``init_block``: ``split(key, 4)``, attention from the
-    first key and the MLP from the second; unit norm scales."""
-    _check_kind(kind)
+    """The reference's ``init_block``: ``split(key, 4)``; the first key
+    draws the attention (or the Mamba-2 / RG-LRU mixer), the second the
+    MLP (or the MoE); unit norm scales."""
     k1, k2, _, _ = prf.split(key, 4)
     d = cfg.d_model
-    return {"norm1": L.init_norm(cfg, d, device),
-            "attn": L.init_attention(k1, cfg, device),
-            "norm2": L.init_norm(cfg, d, device),
-            "mlp": L.init_mlp(k2, cfg, cfg.d_ff, device)}
+    if kind in ("attn", "local_attn"):
+        return {"norm1": L.init_norm(cfg, d, device),
+                "attn": L.init_attention(k1, cfg, device),
+                "norm2": L.init_norm(cfg, d, device),
+                "mlp": L.init_mlp(k2, cfg, cfg.d_ff, device)}
+    if kind == "moe":
+        return {"norm1": L.init_norm(cfg, d, device),
+                "attn": L.init_attention(k1, cfg, device),
+                "norm2": L.init_norm(cfg, d, device),
+                "moe": M.init_moe(k2, cfg, device)}
+    if kind == "ssm":
+        return {"norm1": L.init_norm(cfg, d, device),
+                "mamba": S.init_mamba2(k1, cfg, device)}
+    if kind == "rglru":
+        return {"norm1": L.init_norm(cfg, d, device),
+                "rec": R.init_rglru_block(k1, cfg, device),
+                "norm2": L.init_norm(cfg, d, device),
+                "mlp": L.init_mlp(k2, cfg, cfg.d_ff, device)}
+    raise ValueError(kind)
 
 
-def apply_block(cfg, p, x, positions, kind: str):
+def apply_block(cfg, p, x, positions, kind: str, *, use_ragged_moe=None):
     """(B,S,d) -> ((B,S,d), aux_loss)."""
-    _check_kind(kind)
-    h = L.attention(cfg, p["attn"], L.apply_norm(cfg, p["norm1"], x),
-                    positions, window=_window(cfg, kind))
-    x = x + h
-    x = x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind in _ATTN_KINDS:
+        h = L.attention(cfg, p["attn"], L.apply_norm(cfg, p["norm1"], x),
+                        positions, window=_window(cfg, kind))
+        x = x + h
+        if kind == "moe":
+            y, aux = M.apply_moe(cfg, p["moe"],
+                                 L.apply_norm(cfg, p["norm2"], x),
+                                 use_ragged=use_ragged_moe)
+            x = x + y
+        else:
+            x = x + L.apply_mlp(cfg, p["mlp"],
+                                L.apply_norm(cfg, p["norm2"], x))
+    elif kind == "ssm":
+        x = x + S.apply_mamba2(cfg, p["mamba"],
+                               L.apply_norm(cfg, p["norm1"], x))
+    elif kind == "rglru":
+        x = x + R.apply_rglru_block(cfg, p["rec"],
+                                    L.apply_norm(cfg, p["norm1"], x))
+        x = x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+    else:
+        raise ValueError(kind)
+    return x, aux
 
 
 def init_block_cache(cfg, kind: str, batch_size: int, max_len: int, dtype,
                      device=None):
-    _check_kind(kind)
-    return L.init_kv_cache(cfg, batch_size, max_len, dtype, device)
+    if kind in _ATTN_KINDS:
+        return L.init_kv_cache(cfg, batch_size, max_len, dtype, device)
+    if kind == "ssm":
+        return S.init_mamba2_cache(cfg, batch_size, dtype, device)
+    if kind == "rglru":
+        return R.init_rglru_cache(cfg, batch_size, dtype, device)
+    raise ValueError(kind)
+
+
+def _fill(cache, new):
+    """Copy a block's prefill state into its (preallocated) cache."""
+    if cache is None:
+        return new
+    for k, v in new.items():
+        cache[k].copy_(v)
+    return cache
 
 
 def prefill_block(cfg, p, x, positions, kind: str, batch_size: int,
                   max_len: int, dtype, *, cache=None):
     """apply_block that also fills a decode cache (``cache`` in place, else
     a new one).  Returns (x, cache)."""
-    _check_kind(kind)
-    h, (k, v) = L.attention(cfg, p["attn"], L.apply_norm(cfg, p["norm1"], x),
-                            positions, window=_window(cfg, kind),
-                            return_kv=True)
-    x = x + h
-    if cache is None:
-        cache = L.init_kv_cache(cfg, batch_size, max_len, dtype, x.device)
-    L.fill_kv_cache(cfg, cache, k, v, positions)
-    del k, v
-    x = x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+    if kind in _ATTN_KINDS:
+        h, (k, v) = L.attention(cfg, p["attn"],
+                                L.apply_norm(cfg, p["norm1"], x), positions,
+                                window=_window(cfg, kind), return_kv=True)
+        x = x + h
+        if cache is None:
+            cache = L.init_kv_cache(cfg, batch_size, max_len, dtype,
+                                    x.device)
+        L.fill_kv_cache(cfg, cache, k, v, positions)
+        del k, v
+        if kind == "moe":
+            y, _ = M.apply_moe(cfg, p["moe"],
+                               L.apply_norm(cfg, p["norm2"], x))
+            x = x + y
+        else:
+            x = x + L.apply_mlp(cfg, p["mlp"],
+                                L.apply_norm(cfg, p["norm2"], x))
+    elif kind == "ssm":
+        y, new = S.apply_mamba2(cfg, p["mamba"],
+                                L.apply_norm(cfg, p["norm1"], x),
+                                return_cache=True)
+        x = x + y
+        cache = _fill(cache, new)
+    elif kind == "rglru":
+        y, new = R.apply_rglru_block(cfg, p["rec"],
+                                     L.apply_norm(cfg, p["norm1"], x),
+                                     return_cache=True)
+        x = x + y
+        x = x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+        cache = _fill(cache, new)
+    else:
+        raise ValueError(kind)
     return x, cache
 
 
 def decode_block(cfg, p, x, cache, pos: int, kind: str):
     """x: (B,1,d) -> ((B,1,d), cache updated in place)."""
-    _check_kind(kind)
-    h, cache = L.attention_decode(cfg, p["attn"],
-                                  L.apply_norm(cfg, p["norm1"], x), cache,
-                                  pos, window=_window(cfg, kind))
-    x = x + h
-    x = x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+    if kind in _ATTN_KINDS:
+        h, cache = L.attention_decode(cfg, p["attn"],
+                                      L.apply_norm(cfg, p["norm1"], x),
+                                      cache, pos, window=_window(cfg, kind))
+        x = x + h
+        if kind == "moe":
+            y, _ = M.apply_moe(cfg, p["moe"],
+                               L.apply_norm(cfg, p["norm2"], x))
+            x = x + y
+        else:
+            x = x + L.apply_mlp(cfg, p["mlp"],
+                                L.apply_norm(cfg, p["norm2"], x))
+    elif kind == "ssm":
+        y, cache = S.decode_mamba2(cfg, p["mamba"],
+                                   L.apply_norm(cfg, p["norm1"], x), cache)
+        x = x + y
+    elif kind == "rglru":
+        y, cache = R.decode_rglru_block(cfg, p["rec"],
+                                        L.apply_norm(cfg, p["norm1"], x),
+                                        cache)
+        x = x + y
+        x = x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+    else:
+        raise ValueError(kind)
     return x, cache
 
 
@@ -159,7 +254,7 @@ def init_stack(key, cfg, device=None) -> Dict:
     """The reference's ``init_stack``: head layer ``i`` from ``fold_in(key,
     i)``; a scanned tail's layers from ``split(fold_in(key, 10_000),
     n_tail)`` (the reference ``vmap``s the block init over those keys),
-    written into the stacked leaves one layer at a time."""
+    stacked one layer at a time."""
     kinds = cfg.layer_kinds
     if not _is_scannable(cfg):
         return {f"layer_{i}": init_block(prf.fold_in(key, i), cfg, kind,
@@ -168,21 +263,16 @@ def init_stack(key, cfg, device=None) -> Dict:
     p = {f"layer_{i}": init_block(prf.fold_in(key, i), cfg, kinds[i], device)
          for i in range(cfg.first_k_dense)}
     n_tail = cfg.num_layers - cfg.first_k_dense
-    paths, sizes = T.flatten(block_shapes(cfg, kinds[-1], (n_tail,)))
-    leaves = [torch.empty(s, dtype=torch.float32, device=device)
-              for s in sizes]
-    for j, k in enumerate(prf.split(prf.fold_in(key, 10_000), n_tail)):
-        _, layer = T.flatten(init_block(k, cfg, kinds[-1], device))
-        for dst, src in zip(leaves, layer):
-            dst[j] = src
-    p["scan"] = T.unflatten(paths, leaves)
+    p["scan"] = T.stacked(lambda k: init_block(k, cfg, kinds[-1], device),
+                          prf.split(prf.fold_in(key, 10_000), n_tail))
     return p
 
 
-def apply_stack(cfg, p, x, positions):
+def apply_stack(cfg, p, x, positions, *, use_ragged_moe: bool = False):
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, lp in _layers(cfg, p, unbind=True):
-        x, aux = apply_block(cfg, lp, x, positions, kind)
+        x, aux = apply_block(cfg, lp, x, positions, kind,
+                             use_ragged_moe=use_ragged_moe)
         aux_total = aux_total + aux
     return x, aux_total
 

@@ -63,3 +63,18 @@ def tree_map(fn: Callable, tree, *rest) -> Any:
             raise ValueError(f"tree structures differ: {rp} vs {paths}")
         others.append(rl)
     return unflatten(paths, [fn(*args) for args in zip(xs, *others)])
+
+
+def stacked(init_one: Callable, keys) -> Any:
+    """``jax.vmap(init_one)(keys)`` of an init: each key's tree, its leaves
+    stacked on a new leading axis (allocated once, filled one key at a
+    time)."""
+    paths, first = flatten(init_one(keys[0]))
+    out = [x.new_empty((len(keys),) + tuple(x.shape)) for x in first]
+    for dst, src in zip(out, first):
+        dst[0] = src
+    del first
+    for i, k in enumerate(keys[1:], 1):
+        for dst, src in zip(out, leaves(init_one(k))):
+            dst[i] = src
+    return unflatten(paths, out)

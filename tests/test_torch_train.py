@@ -59,6 +59,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="checkpoint"):
         ttrain.main(["--classifier", "--checkpoint-dir", "ckpt",
                      "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 2,"):
         ttrain.main(["--arch", "mamba2-780m", "--rounds", "1",
                      "--device", "cpu"])
