@@ -101,6 +101,29 @@ Phases (each prints its seconds):
      faults=FaultPlan(...))`` on the classifier (finite losses, the final
      loss below the first decile's); the sharded round on the classifier
      (4 leaves; masked == unmasked, within 1e-6 of the single-host round);
+  2h. (run after 2d) the standalone protocol, checkpoints and training the
+     other families: ``encode_masked_contribution`` through K1 at the
+     embedding chunk, ``torch.equal`` to its plain branch on the card; 8
+     such rows, slots 2 and 5 absent, flushed by ``aggregate_masked_buffer``
+     with recovery ``torch.equal`` to the unmasked flush of the 6
+     survivors' ``encode_contribution`` rows; ``secure_aggregate`` of 8
+     updates of 2^20 at 24 bits bit-equal to the CPU's, its masks summing
+     to 0 and its mean within a fixed-point level; phase
+     2d's CLI run checkpoints after round 2 (``--checkpoint-dir
+     build/smoke_checkpoint``): ``step_2`` restores ``torch.equal`` to the
+     run's final params, and ``serve.main --checkpoint`` at phase 2c's
+     settings prints ``restored step 2`` and samples what ``generate``
+     samples on the trained params (payload bytes, save and restore
+     seconds; the directory deleted after); one round of each other family
+     at its published width, sequence 64, bits 32, noise 0: mamba2-780m
+     and whisper-tiny at full depth through ``train.main --full`` (cohort
+     4), deepseek-moe-16b (4 layers, cohort 2; masked and unmasked,
+     bit-equal), recurrentgemma-2b (20 of 26 layers, cohort 2) and
+     internvl2-76b (1 of 80 layers behind 1024 stub image tokens, cohort
+     1) through ``build_round_step``, each sized under ~60 GiB; whisper-tiny
+     also at bits 32 vs bits 0 (within the fixed-point resolution); each
+     run's metrics finite, params moved, round split by its ``round.*``
+     spans and peak memory;
   3. the exact kernel launch counts of each path (and zero plain-version
      calls): K10 once per layer per decode step of each serve run (phase
      2g: once per attention layer per step, twice per whisper decoder
@@ -112,6 +135,10 @@ Phases (each prints its seconds):
      (K1 per chunk of each masked encode, K5 per chunk of each packed
      encode or landing, K2's PRF lane per chunk per leaf per flush, K4 per
      chunk of each sketch push, K3/K6/K7 per leaf / client leaf / leaf);
+     phase 2h: K10 per layer per decode step of the served checkpoint and
+     of ``generate`` on the trained params, K1 once per protocol row and
+     K7 once per protocol flush, per family round K3 once per leaf, K6
+     once per client leaf, K7 once per leaf (bits 0: K3 and K8);
   4. the card's name and power limit, each kernel's time at the main path's
      largest shape beside its bound (bytes over 3.35 TB/s, float operations
      over 67 T/s, integer instructions over the issue rate SMs x 128 x the
@@ -147,7 +174,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -247,6 +277,37 @@ DROPFREE_CAPACITY = 64.0
 # probabilities differ by at most this much in the teacher-forced pass
 # (f32 sums in another order move a probability by ~1e-9 here)
 NEAR_TIE = 1e-6
+# phase 2h: the standalone protocol at the embedding chunk (8 slots, 2 of
+# them absent at the flush), secure_aggregate of 8 updates of 2^20, phase
+# 2d's checkpoint (step_2, written under build/) served at phase 2c's
+# settings, and training the other families at their published widths.
+PROTO_ROWS, PROTO_ABSENT = 8, (2, 5)
+# secure_aggregate at 24 bits: its field for 8 updates is 2^27, so their
+# sum cannot wrap (at 32 bits the field stays 2^32 and a sum of 8 values
+# past ~4.6 sigma wraps, as the reference's does)
+SECAGG_UPDATES, SECAGG_D, SECAGG_BITS = 8, 1 << 20, 24
+CKPT_DIR = ROOT / "build" / "smoke_checkpoint"
+CKPT_EVERY = 2
+# (run, arch, layers or None for the full depth, cohort, parameters,
+# leaves, entry point): "cli" through train.main --full, "round" through
+# build_round_step on the depth-cut config.  Sized at ~(16 + 4 x cohort)
+# bytes a parameter (phase 2d's round: 46.07 GiB for 1,543,714,304 at
+# cohort 4), each under ~60 GiB: deepseek-moe-16b at phase 2g's 4 layers
+# needs cohort 2 (50.7 GiB); recurrentgemma-2b at cohort 2 is cut from 26
+# to 20 layers (53.2 GiB); internvl2-76b's 2,957,008,896 parameters at 1
+# layer need cohort 1 (55.1 GiB).  Each config's max_seq_len is train.py's,
+# max(sequence, 64): whisper-tiny's learned decoder positions shrink to 64
+# rows (36,472,704 parameters where it serves 39,593,856)
+FAMILY_SEQ, FAMILY_ROUNDS = 64, 1
+FAMILY_TRAIN = (
+    ("train-ssm", "mamba2-780m", None, 4, 780_148_992, 11, "cli"),
+    ("train-audio", "whisper-tiny", None, 4, 36_472_704, 110, "cli"),
+    ("train-moe", "deepseek-moe-16b", 4, 2, 2_267_039_744, 25, "round"),
+    ("train-hybrid", "recurrentgemma-2b", 20, 2, 2_380_659_200, 266,
+     "round"),
+    ("train-vlm", "internvl2-76b", 1, 1, 2_957_008_896, 12, "round"),
+)
+FAMILY_FULL = True  # False: the reduced configs (a CPU rehearsal)
 # phase 2e: a fleet-scale FA query through threshold_cdf: one statistics
 # cohort of 2^20 devices over the paper's 32 dense features and
 # test_system's 128-threshold grid, randomized response at 0.1; K9 votes
@@ -1656,10 +1717,13 @@ def _finite_metrics(history) -> bool:
                for k in ("loss", "clip_fraction", "update_norm"))
 
 
-def train_path(torch, seed: int, counts: dict, smi: str) -> None:
-    """Phase 2d; ``counts[run]`` gets the kernel counts of each run."""
+def train_path(torch, seed: int, counts: dict, smi: str) -> dict:
+    """Phase 2d; ``counts[run]`` gets the kernel counts of each run.
+    Returns the CLI run's final params and its checkpoint's save seconds
+    (phase 2h serves that checkpoint)."""
     import math
     from repro_torch import tree as T
+    from repro_torch.checkpoint import checkpoint as ck
     from repro_torch.configs import registry
     from repro_torch.configs.base import FLConfig
     from repro_torch.core import telemetry as tele
@@ -1670,20 +1734,33 @@ def train_path(torch, seed: int, counts: dict, smi: str) -> None:
     from repro_torch.launch import train
     from repro_torch.models.model import build_model
 
-    # 1. the train CLI at full width: its lines, its time split, its memory
+    # 1. the train CLI at full width: its lines, its time split, its memory;
+    # it checkpoints after round CKPT_EVERY (the save timed)
     tel = tele.Telemetry(record_spans=True, fence=True)
     prev = tele.set_default(tel)
-    session = {}
+    session, save_s, save = {}, [], ck.save
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        save(*a, **kw)
+        save_s.append(time.perf_counter() - t0)
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     try:
+        ck.save = timed_save
         reset_counts()
         if DEVICE == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        rc = train.main(TRAIN_ARGS + ["--seed", str(seed), "--log-every",
-                                      "1", "--device", DEVICE],
-                        session=session)
+        rc = train.main(TRAIN_ARGS + [
+            "--seed", str(seed), "--log-every", "1", "--device", DEVICE,
+            "--checkpoint-dir", str(CKPT_DIR), "--checkpoint-every",
+            str(CKPT_EVERY)], session=session)
         counts["train-full"] = kernel_counts()
     finally:
+        ck.save = save
         tele.set_default(prev)
+    check(len(save_s) == TRAIN_ROUNDS // CKPT_EVERY,
+          f"train: {len(save_s)} checkpoints saved")
     check(rc == 0, f"train: exit {rc}")
     hist = session["metrics"]
     check(len(hist) == TRAIN_ROUNDS and _finite_metrics(hist),
@@ -1703,6 +1780,7 @@ def train_path(torch, seed: int, counts: dict, smi: str) -> None:
             f"without its uniforms and sums); loss {hist[r]['loss']:.4f} "
             f"clip% {hist[r]['clip_fraction']:.2f} |u| "
             f"{hist[r]['update_norm']:.3f}")
+    stash = {"params": session["state"].params, "save_s": save_s[-1]}
     del session
     empty_cache(torch)
 
@@ -1792,6 +1870,322 @@ def train_path(torch, seed: int, counts: dict, smi: str) -> None:
     check(late < losses[0], f"classifier: loss {losses[0]:.4f} -> {late:.4f}")
     log(f"  classifier, {CLASSIFIER_ROUNDS} rounds: loss {losses[0]:.4f} -> "
         f"{late:.4f} (mean of the last 5)")
+    return stash
+
+
+# ---------------------------------------------------------------------------
+# phase 2h: the standalone protocol, checkpoints, training the other families
+# ---------------------------------------------------------------------------
+def checkpoint_path(torch, seed: int, stash: dict, counts: dict,
+                    smi: str) -> None:
+    """Phase 2d's ``step_2`` restored ``torch.equal`` to that run's final
+    params; ``serve.main --checkpoint`` at phase 2c's settings prints
+    ``restored step 2`` and samples what ``generate`` samples on the
+    trained params passed directly.  The directory is deleted after."""
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import checkpoint as ck
+    from repro_torch.launch import serve
+    path = CKPT_DIR / f"step_{CKPT_EVERY}"
+    check(ck.latest_step_dir(str(CKPT_DIR)) == str(path),
+          f"latest checkpoint {ck.latest_step_dir(str(CKPT_DIR))}")
+    nbytes = os.path.getsize(path / "payload.msgpack")
+    sync(torch)
+    t0 = time.perf_counter()
+    tree, manifest = ck.restore(str(path), device=DEVICE)
+    sync(torch)
+    restore_s = time.perf_counter() - t0
+    check(manifest["step"] == CKPT_EVERY
+          and manifest["metadata"]["arch"] == TRAIN_ARCH,
+          f"checkpoint manifest {manifest['step']}, {manifest['metadata']}")
+    want_paths, want = T.flatten(stash["params"])
+    got_paths, got = T.flatten(tree["params"])
+    check(got_paths == want_paths and all(
+        torch.equal(a, b) for a, b in zip(got, want)),
+        "the restored checkpoint differs from the trained params")
+    del tree, got
+    empty_cache(torch)
+    log(f"  checkpoint {path.name}: payload {nbytes:,} bytes, save "
+        f"{stash['save_s']:.2f} s, restore to {DEVICE} {restore_s:.2f} s "
+        f"(read, sha256, decode, copy); params torch.equal to the trained "
+        f"ones; {smi}")
+    session, out = {}, io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(SERVE_ARGS + ["--seed", str(seed), "--device",
+                                      DEVICE, "--checkpoint", str(path)],
+                        session=session)
+    counts["serve-checkpoint"] = kernel_counts()
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"    | {line}")
+    check(rc == 0 and lines[0] == f"restored step {CKPT_EVERY}",
+          f"serve --checkpoint: exit {rc}, {lines[:1]}")
+    reset_counts()
+    gen = serve.generate(session["model"], stash["params"],
+                         session["tokens"], SERVE_STEPS,
+                         inputs=session["inputs"])
+    counts["serve-trained"] = kernel_counts()
+    served = session["generation"]
+    check(torch.equal(gen.tokens, served.tokens),
+          "the checkpoint's sample differs from the trained params'")
+    log(f"  serve --checkpoint: prefill {served.prefill_s * 1e3:.1f} ms, "
+        f"decode {served.decode_s * 1e3 / SERVE_STEPS:.2f} ms/step; its "
+        f"{SERVE_B} x {SERVE_STEPS + 1} tokens equal generate() on the "
+        f"trained params")
+    del session, gen, served
+    stash.clear()
+    shutil.rmtree(CKPT_DIR)
+    empty_cache(torch)
+
+
+def protocol_path(torch, seed: int, counts: dict, smi: str) -> None:
+    """The single-row protocol at the embedding chunk: K1 through
+    ``encode_masked_contribution`` ``torch.equal`` to its plain branch; 8
+    masked rows, slots ``PROTO_ABSENT`` absent, flushed with recovery
+    ``torch.equal`` to the unmasked flush of the survivors'
+    ``encode_contribution`` rows; ``secure_aggregate`` of 8 updates of
+    2^20 on the card bit-equal to the CPU's, its masks summing to 0."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.fl import aggregation as agg
+    from repro_torch.core.fl import secure_agg as sa
+    from repro_torch.kernels import prf
+    spec = agg.make_spec(FLConfig(clip_norm=1.0, secure_agg_bits=32,
+                                  noise_multiplier=0.0), PROTO_ROWS)
+    key = prf.PRNGKey(seed)
+    sess = agg.make_mask_session(spec, prf.fold_in(key, 0x5E55))
+    flush_rng = prf.fold_in(key, 0xF1)
+
+    def delta(b):
+        g = torch.Generator(device=DEVICE).manual_seed(seed * 7919 + 500 + b)
+        return torch.randn(EMBED, generator=g, device=DEVICE) * DELTA_SCALE
+
+    reset_counts()
+    rows = torch.empty((PROTO_ROWS, EMBED), dtype=torch.int32, device=DEVICE)
+    enc_ms = []
+    for b in range(PROTO_ROWS):
+        x, rng = delta(b), prf.fold_in(key, b)
+        sync(torch)
+        t0 = time.perf_counter()
+        rows[b] = agg.encode_masked_contribution(x, 1.0, b, spec, sess,
+                                                 rng)[0]
+        sync(torch)
+        enc_ms.append((time.perf_counter() - t0) * 1e3)
+        if b == 0:
+            t0 = time.perf_counter()
+            alt = agg.encode_masked_contribution(x, 1.0, b, spec, sess, rng,
+                                                 use_kernel=False)[0]
+            sync(torch)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            check(torch.equal(rows[0], alt),
+                  "K1's masked row differs from the plain branch")
+            del alt
+        del x
+    present = [0 if b in PROTO_ABSENT else 1 for b in range(PROTO_ROWS)]
+    survivors = [b for b in range(PROTO_ROWS) if present[b]]
+    sync(torch)
+    t0 = time.perf_counter()
+    got = agg.aggregate_masked_buffer(rows, present, float(len(survivors)),
+                                      spec, sess, flush_rng)
+    sync(torch)
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    del rows
+    empty_cache(torch)
+    plain = torch.stack([agg.encode_contribution(
+        delta(b), 1.0, spec, prf.fold_in(key, b))[0] for b in survivors])
+    want = agg.aggregate_masked_buffer(plain, [1] * len(survivors),
+                                       float(len(survivors)), spec, None,
+                                       flush_rng, masked=False)
+    check(torch.equal(got, want), "the recovered masked flush differs from "
+          "the survivors' unmasked flush")
+    del plain, got, want
+    empty_cache(torch)
+    log(f"  protocol at the {EMBED:,}-wide embedding chunk, {PROTO_ROWS} "
+        f"slots: encode_masked_contribution (K1) median "
+        f"{statistics.median(enc_ms):.2f} ms, torch.equal to its plain "
+        f"branch ({plain_ms:.0f} ms); flush with slots {PROTO_ABSENT} "
+        f"recovered {flush_ms:.0f} ms, torch.equal to the unmasked flush of "
+        f"the {len(survivors)} survivors; {smi}")
+    g = torch.Generator().manual_seed(seed + 3)
+    ups = [torch.randn(SECAGG_D, generator=g) * 0.3
+           for _ in range(SECAGG_UPDATES)]
+    srng = prf.fold_in(key, 0xA66)
+    sync(torch)
+    t0 = time.perf_counter()
+    on_card = sa.secure_aggregate([u.to(DEVICE) for u in ups], SECAGG_BITS,
+                                  4.0, seed=seed, rng=srng)
+    sync(torch)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    on_cpu = sa.secure_aggregate(ups, SECAGG_BITS, 4.0, seed=seed,
+                                 rng=srng)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    peers = list(range(SECAGG_UPDATES))
+    zero = sa.aggregate_masked([sa.pairwise_mask(
+        (SECAGG_D,), c, peers, seed, device=DEVICE) for c in peers])
+    check(torch.equal(on_card.cpu(), on_cpu), "secure_aggregate on the card "
+          "differs from the CPU's")
+    check(not bool(zero.any()), "the pairwise masks do not sum to 0")
+    # stochastic rounding moves each value by less than one level
+    step = 4.0 / (2 ** (SECAGG_BITS - 1) - 1)
+    err = float((on_cpu - torch.stack(ups).mean(0)).abs().max())
+    check(err <= 2 * step, f"secure_aggregate is {err:.3g} from the mean")
+    counts["protocol"] = kernel_counts()
+    log(f"  secure_aggregate of {SECAGG_UPDATES} x {SECAGG_D:,} (bits "
+        f"{SECAGG_BITS}, stochastic rounding): {card_ms:.0f} ms on the card, "
+        f"bit-equal to the CPU's ({cpu_ms:.0f} ms); masks sum to 0; max "
+        f"|mean error| {err:.3g} (one level {step:.3g})")
+
+
+def _family_batch(torch, cfg, cohort: int, seed: int, r: int) -> dict:
+    """train.py's round batch: token streams and, for a VLM or audio model,
+    its stub embeddings ``0.02 * normal(fold_in(key, r))``."""
+    from repro_torch.data.synthetic import fl_token_batch
+    from repro_torch.kernels import prf
+    b = fl_token_batch(cohort, FAMILY_SEQ, cfg.vocab_size,
+                       seed=seed * 7919 + r)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}
+    n = {"vlm": cfg.num_image_tokens, "audio": cfg.encoder_seq}.get(
+        cfg.family)
+    if n is not None:
+        z = prf.normal(prf.fold_in(prf.PRNGKey(seed), r),
+                       (cohort, 1, n, cfg.d_model), device=DEVICE)
+        name = "patch_embeds" if cfg.family == "vlm" else "audio_embeds"
+        batch[name] = z * torch.tensor(0.02, device=DEVICE)
+    return batch
+
+
+def _log_round(tel, run: str, hist, peak: float, smi: str) -> None:
+    for r, b in enumerate(round_breakdown(tel)):
+        parts = "; ".join(f"{k.split('.')[1]} {b[k]:.1f}"
+                          for k in ROUND_PARTS)
+        log(f"  {run} round {r}: {b['total']:.1f} ms = {parts} (ms); loss "
+            f"{hist[r]['loss']:.4f} clip% {hist[r]['clip_fraction']:.2f} "
+            f"|u| {hist[r]['update_norm']:.3f}; peak {peak:.2f} GiB; {smi}")
+
+
+def _moved(torch, a, b) -> bool:
+    from repro_torch import tree as T
+    return any(not torch.equal(x, y) for x, y in zip(T.leaves(a),
+                                                     T.leaves(b)))
+
+
+def family_train_path(torch, seed: int, counts: dict, smi: str) -> dict:
+    """Each family of FAMILY_TRAIN trained at its published width: one
+    round at sequence FAMILY_SEQ, bits 32, noise 0 (``train.main`` or
+    ``build_round_step``); its metrics finite, its params moved, its round
+    split by the ``round.*`` spans, its peak memory.  The MoE round runs
+    masked and unmasked (bit-equal); whisper-tiny at bits 32 and bits 0
+    (within the fixed-point resolution).  Returns each run's launches."""
+    import math
+    from repro_torch import tree as T
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import telemetry as tele
+    from repro_torch.core.fl import aggregation as agg
+    from repro_torch.core.fl import round as fl_round
+    from repro_torch.kernels import prf
+    from repro_torch.launch import serve, train
+    from repro_torch.models.model import build_model, param_shapes
+    want = {}
+    key = prf.PRNGKey(seed)
+    for run, arch, depth, cohort, n_params, n_leaves, how in FAMILY_TRAIN:
+        cfg = registry.get_config(arch, reduced=not FAMILY_FULL)
+        cfg = cfg.with_overrides(max_seq_len=max(FAMILY_SEQ, 64))
+        if depth:
+            cfg = serve.cut_depth(cfg, depth)
+        shapes = T.leaves(param_shapes(cfg))
+        n = sum(math.prod(s) for s in shapes)
+        check(n == n_params and len(shapes) == n_leaves,
+              f"{run}: {n} parameters in {len(shapes)} leaves")
+        log(f"  {run}: {arch}{f' ({depth} layers)' if depth else ''}, "
+            f"{n:,} parameters in {n_leaves} leaves, cohort {cohort}, "
+            f"sequence {FAMILY_SEQ}")
+        per_round = dict(sq_norms=n_leaves, quantize_mask=cohort * n_leaves,
+                         dequantize=n_leaves)
+        tel = tele.Telemetry(record_spans=True, fence=True)
+        _peak_gib(torch, reset=True)
+        if how == "cli":
+            session = {}
+            prev = tele.set_default(tel)
+            try:
+                reset_counts()
+                rc = train.main(
+                    ["--arch", arch, "--rounds", str(FAMILY_ROUNDS),
+                     "--cohort", str(cohort), "--seq-len", str(FAMILY_SEQ),
+                     "--noise", "0", "--log-every", "1", "--seed",
+                     str(seed), "--device", DEVICE]
+                    + (["--full"] if FAMILY_FULL else []), session=session)
+                counts[run] = kernel_counts()
+            finally:
+                tele.set_default(prev)
+            peak = _peak_gib(torch)
+            check(rc == 0 and _finite_metrics(session["metrics"]),
+                  f"{run}: exit {rc}, metrics {session['metrics']}")
+            model, hist = session["model"], session["metrics"]
+            new = session["state"].params
+            del session
+            params = model.init(key)
+        else:
+            model = build_model(cfg, device=DEVICE)
+            params = model.init(key)
+        batch = _family_batch(torch, cfg, cohort, seed, 0)
+        rng = prf.fold_in(key, 10_000)
+
+        def round_once(bits, masked=False, name=run):
+            fl = FLConfig(cohort_size=cohort, local_lr=0.5, clip_norm=1.0,
+                          noise_multiplier=0.0, secure_agg_bits=bits,
+                          secure_agg_masked=masked)
+            t = tele.Telemetry(record_spans=True, fence=True)
+            step = fl_round.build_round_step(model.loss_fn, fl,
+                                             cohort_size=cohort,
+                                             telemetry=t, device=DEVICE)
+            _peak_gib(torch, reset=True)
+            reset_counts()
+            out, met = step(fl_round.init_fl_state(params, fl), batch, rng)
+            counts[name] = kernel_counts()
+            h = [{k: float(v) for k, v in met.items()}]
+            check(_finite_metrics(h), f"{name}: non-finite {h}")
+            return out.params, h, t, _peak_gib(torch)
+
+        if how == "round":
+            if cfg.family == "moe":
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                masked, _, _, _ = round_once(32, True, f"{run}-masked")
+                want[f"{run}-masked"] = per_round
+            new, hist, tel, peak = round_once(32)
+            if cfg.family == "moe":
+                torch.use_deterministic_algorithms(False)
+                check(not _moved(torch, masked, new),
+                      f"{run}: the masked round differs from the unmasked")
+                log(f"  {run}: the masked round's params bit-equal to the "
+                    f"unmasked round's")
+                del masked
+        rounds = FAMILY_ROUNDS if how == "cli" else 1
+        want[run] = {k: rounds * v for k, v in per_round.items()}
+        _log_round(tel, run, hist, peak, smi)
+        check(_moved(torch, params, new), f"{run}: the params did not move")
+        if cfg.family == "audio":
+            news = {}
+            for bits in (32, 0):
+                news[bits], _, _, _ = round_once(bits, name=f"{run}-bits{bits}")
+            want[f"{run}-bits32"] = per_round
+            want[f"{run}-bits0"] = dict(sq_norms=n_leaves,
+                                        scale_accum=n_leaves)
+            scale = agg.fixed_point_scale(FLConfig(secure_agg_bits=32),
+                                          cohort)
+            atol = cohort / scale
+            worst = max(float((a - b).abs().max()) for a, b in zip(
+                T.leaves(news[32]), T.leaves(news[0])))
+            check(all(bool(((a - b).abs() <= atol + 2.4e-7 * b.abs()).all())
+                      for a, b in zip(T.leaves(news[32]),
+                                      T.leaves(news[0]))),
+                  f"{run}: bits 32 vs bits 0 max |dp| {worst:.3g}")
+            log(f"  {run}: bits 32 vs bits 0 from the same params, batch and "
+                f"key: max |dparam| {worst:.3g} (bound {atol:.3g} + 2 ulp)")
+            del news
+        del model, params, new, batch
+        empty_cache(torch)
+    return want
 
 
 def empty_cache(torch) -> None:
@@ -2413,7 +2807,14 @@ def main() -> int:
         families_path(torch, args.seed, counts, smi)
 
     with Phase("phase 2d: training qwen2-1.5b at full width and depth"):
-        train_path(torch, args.seed, counts, smi)
+        stash = train_path(torch, args.seed, counts, smi)
+
+    with Phase("phase 2h: the standalone protocol, checkpoints and "
+               "training the other families"):
+        checkpoint_path(torch, args.seed, stash, counts, smi)
+        del stash
+        protocol_path(torch, args.seed, counts, smi)
+        family_want = family_train_path(torch, args.seed, counts, smi)
 
     with Phase("phase 2e: federated analytics and the control plane"):
         analytics_path(torch, args.seed, counts, smi)
@@ -2493,6 +2894,17 @@ def main() -> int:
         # per chunk per leaf per tier flush, K4 per chunk of every sketch
         # push, K3/K6/K7 per leaf / client leaf / leaf of each round)
         for path, nonzero in tier_want.items():
+            want[path] = dict(zero, **nonzero)
+        # phase 2h: K10 once per layer per decode step of the served
+        # checkpoint and of generate() on the trained params; K1 once per
+        # encoded protocol row (its plain branch and secure_aggregate
+        # launch nothing); each family round K3 once per leaf, K6 once per
+        # client leaf, K7 once per leaf (bits 0: K3 and K8 once per leaf)
+        for name in ("serve-checkpoint", "serve-trained"):
+            want[name] = dict(zero, flash_decode=SERVE_LAYERS * SERVE_STEPS)
+        want["protocol"] = dict(zero, quantize_mask_prf=PROTO_ROWS,
+                                dequantize=2)  # K7: the two flushes' decode
+        for path, nonzero in family_want.items():
             want[path] = dict(zero, **nonzero)
         launches = {}
         for path, got in counts.items():

@@ -13,8 +13,10 @@ mask session and its own slice of the model-wide stochastic-rounding
 stream), the per-session compression operators (``plan_operators``), the
 streamed per-arrival encode (``encode_plan_flat``, uncompressed or onto the
 compressed wire) with its modular-sum flush
-(``aggregate_plan_masked_buffer``), and the batched flush
-(``aggregate_plan_buffer``).
+(``aggregate_plan_masked_buffer``), the batched flush
+(``aggregate_plan_buffer``), and the same protocol on one flat row
+(``encode_contribution``, ``encode_masked_contribution`` through K1,
+``aggregate_masked_buffer``).
 
 The fused kernels of that path are called unconditionally —
 ``kernels.secure_agg.quantize_mask_prf`` for every uncompressed masked
@@ -283,6 +285,11 @@ class ParamPlan:
         return sum(c.size for c in self.chunks)
 
     @property
+    def chunk_widths(self) -> Tuple[int, ...]:
+        """Per-chunk storage widths (padded)."""
+        return tuple(c.padded for c in self.chunks)
+
+    @property
     def leaf_sizes(self) -> Tuple[int, ...]:
         return tuple(math.prod(s) for s in self.shapes)
 
@@ -472,11 +479,8 @@ def encode_plan_flat(xs: Sequence[torch.Tensor], weight, slot: int,
     wire = plan_wire_chunks(spec, plan) if ops is not None else None
     rows = []
     for c, (ck, x) in enumerate(zip(plan.chunks, xs)):
-        xw = x * (weight * clip_scale)
-        if spec.dev_noise > 0.0:
-            noise = prf.normal(plan.chunk_noise_key(rng, c), x.shape,
-                               device=dev)
-            xw = xw + noise * (spec.dev_noise * weight)
+        xw = _weight_noise(x, weight, clip_scale, spec,
+                           plan.chunk_noise_key(rng, c))
         if ops is not None:
             rows.append(_encode_compressed(xw, ck, ops[c], wire[c], slot,
                                            spec, sessions, c, u_words,
@@ -487,13 +491,107 @@ def encode_plan_flat(xs: Sequence[torch.Tensor], weight, slot: int,
                 xw, spec.sa_scale, slot, u_words,
                 kernel_session(sessions[c], dev), u_offset=ck.offset)
         else:
-            u = prf.uniform_block(*u_words, ck.size, offset=ck.offset,
-                                  device=dev)
-            row = ksa.stochastic_round(xw * spec.sa_scale, u)
+            row = _stream_quantize(xw, spec.sa_scale, rng, offset=ck.offset)
         if ck.padded > ck.size:
             row = torch.nn.functional.pad(row, (0, ck.padded - ck.size))
         rows.append(row)
     return tuple(rows), nrm, (clip_scale < 1.0).to(torch.float32)
+
+
+def _weight_noise(x: torch.Tensor, weight: torch.Tensor,
+                  clip_scale: torch.Tensor, spec: AggregationSpec,
+                  noise_key) -> torch.Tensor:
+    """The pre-encode prologue of one flat delta, given its clip scale:
+    ``x * (weight * clip_scale)`` plus, under device placement, the
+    reference's ``normal(noise_key)`` draw times ``dev_noise * weight``.
+    Shared by the streamed encodes, so their arithmetic cannot fork."""
+    xw = x * (weight * clip_scale)
+    if spec.dev_noise > 0.0:
+        noise = prf.normal(noise_key, x.shape, device=x.device)
+        xw = xw + noise * (spec.dev_noise * weight)
+    return xw
+
+
+def _stream_quantize(xw: torch.Tensor, sa_scale: float, rng, *,
+                     offset: int = 0) -> torch.Tensor:
+    """Stochastic fixed-point encode of a flat row against the
+    ``fold_in(rng, 2)`` TAG_UNIFORM stream at positions ``offset + e``: the
+    plain form of K1's encode, bit for bit."""
+    u = prf.uniform_block(*prf.fold_in(rng, 2), xw.shape[0], offset=offset,
+                          device=xw.device)
+    return ksa.stochastic_round(xw * sa_scale, u)
+
+
+def _clip_weight_noise(x: torch.Tensor, weight, spec: AggregationSpec, rng):
+    """Clip one flat delta by its L2 norm, weight it, add device noise
+    (``fold_in(rng, 1)``).  Returns (xw f32, pre-clip norm, was_clipped)."""
+    x = x.to(torch.float32)
+    nrm = prf.sqrt_f32(torch.sum(x * x))
+    clip_scale = clip_scales(nrm, spec.clip_norm)
+    weight = torch.as_tensor(weight, dtype=torch.float32, device=x.device)
+    xw = _weight_noise(x, weight, clip_scale, spec, prf.fold_in(rng, 1))
+    return xw, nrm, (clip_scale < 1.0).to(torch.float32)
+
+
+def encode_contribution(x: torch.Tensor, weight, spec: AggregationSpec, rng):
+    """The unmasked streamed encode of one flat delta: clip -> weight ->
+    [device noise] -> stochastic fixed-point encode.  Returns (int32 (D,),
+    pre-clip norm, was_clipped)."""
+    xw, nrm, was_clipped = _clip_weight_noise(x, weight, spec, rng)
+    return _stream_quantize(xw, spec.sa_scale, rng), nrm, was_clipped
+
+
+def encode_masked_contribution(x: torch.Tensor, weight, slot: int,
+                               spec: AggregationSpec,
+                               session: sa.MaskSession, rng, *,
+                               use_kernel: bool = True):
+    """The client side of the masked protocol on one flat delta: the
+    :func:`encode_contribution` pipeline plus the pairwise mask of ``slot``
+    (an absolute position) in ``session``, wrapping mod 2^32.
+
+    The encode and mask run fused in ``kernels.secure_agg.quantize_mask_prf``
+    (K1); ``use_kernel=False`` computes them apart (``_stream_quantize``
+    plus ``session.mask``), as the reference's host path does: both give
+    the same bits.  Returns (masked int32 (D,), pre-clip norm,
+    was_clipped)."""
+    xw, nrm, was_clipped = _clip_weight_noise(x, weight, spec, rng)
+    if use_kernel:
+        masked = ksa.quantize_mask_prf(
+            xw, spec.sa_scale, slot, prf.fold_in(rng, 2),
+            kernel_session(session, xw.device))
+    else:
+        q = _stream_quantize(xw, spec.sa_scale, rng)
+        m = session.mask(xw.shape, slot, device=xw.device)
+        masked = prf.to_int32(prf.words_of(q) + prf.words_of(m))
+    return masked, nrm, was_clipped
+
+
+def aggregate_masked_buffer(mbuf: torch.Tensor, present, total_weight,
+                            spec: AggregationSpec,
+                            session: Optional[sa.MaskSession], rng, *,
+                            recover: bool = True, masked: bool = True):
+    """The server side of the masked protocol on a (B, D) int32 buffer:
+    modular sum + decode.
+
+    With ``recover`` the absent slots (``present``, one host flag per row)
+    are gated out and, when ``masked``, the session's recovery sweep
+    re-adds their uncancelled mask shares, so the decode is the survivors'
+    exact sum; without it the session is known complete and the masks
+    cancel in the plain sum.  ``masked=False`` is a buffer of unmasked
+    :func:`encode_contribution` rows (no shares to recover).  Returns the
+    weight-normalized mean delta (D,), TEE noise under
+    ``fold_in(rng, 0xDEE)``."""
+    B, D = mbuf.shape
+    if recover:
+        pres = sa.present_flags(present)
+        acc = sum_rows(mbuf, [p == 1 for p in pres])
+        if masked:
+            rec = session.recovery((D,), pres, device=mbuf.device)
+            acc = prf.to_int32(prf.words_of(acc) + prf.words_of(rec))
+    else:
+        acc = sum_rows(mbuf)
+    return finalize_aggregate(acc, total_weight, spec,
+                              prf.fold_in(rng, 0xDEE))
 
 
 def _encode_compressed(xw: torch.Tensor, ck: ChunkSpec, op: comp.ChunkOps,

@@ -5,8 +5,10 @@ uses: the fixed-point ``quantize``/``dequantize`` of the enclave wire, the
 power-of-two secure-agg field (``field_modulus``/``to_field``/
 ``recenter``), the packed wire codec (``pack_residues``/``unpack_residues``,
 widths 1..32; below 32 bits it is ``kernels.secure_agg``'s K5), the
-mask-graph enumeration, and the session masks and dropout recovery as one
-:class:`MaskSession` value.  Every mask is a sum of
+mask-graph enumeration, the session masks and dropout recovery as one
+:class:`MaskSession` value, and the standalone protocol keyed by an integer
+seed (``pairwise_mask``, ``mask_update``, ``aggregate_masked``,
+``secure_aggregate``).  Every mask is a sum of
 counter-based pair streams (``repro_torch.kernels.prf``), bit-identical to
 the JAX functions.
 
@@ -231,18 +233,86 @@ def session_pairs(num_slots: int, degree: int = 0,
 # ---------------------------------------------------------------------------
 # Session masks and recovery
 # ---------------------------------------------------------------------------
-def session_mask(shape, slot: int, num_slots: int, key,
-                 degree: int = 0, perm=None, *, device=None) -> torch.Tensor:
-    """Pairwise int32 mask of session position ``slot`` (shape ``shape``)."""
-    k0, k1 = prf.key_words(key)
+def _shape(shape) -> Tuple[int, ...]:
+    return (int(shape),) if isinstance(shape, int) else tuple(shape)
+
+
+def _signed_pair_sum(k0: int, k1: int, slot: int, others: Sequence[int],
+                     shape, *, device=None) -> torch.Tensor:
+    """``sum_d sign(d - slot) * stream(pair(slot, d))`` over ``others``
+    (host ints), mod 2^32, shaped ``shape``.  A diagonal entry ``d ==
+    slot`` gates itself out with sign 0.  The pair streams are generated
+    in tiles over (pairs x positions) and summed in int64
+    (``prf.signed_pair_sum``), so no ``(len(others), D)`` block exists."""
     slot = int(slot)
-    others = _neighbor_slots(slot, num_slots, degree, perm)
+    others = [int(d) for d in others]
     lo = [min(slot, d) for d in others]
     hi = [max(slot, d) for d in others]
     sign = [(d > slot) - (d < slot) for d in others]
     m = prf.signed_pair_sum(k0, k1, lo, hi, sign, _size(shape),
                             device=device)
-    return m.reshape(tuple(shape) if not isinstance(shape, int) else (shape,))
+    return m.reshape(_shape(shape))
+
+
+def pairwise_mask(shape, client_id: int, peer_ids: Sequence[int], seed: int,
+                  *, device=None) -> torch.Tensor:
+    """Additive int32 mask of ``client_id`` that cancels over all clients.
+
+    ``mask_c = sum_{d > c} PRF(c, d) - sum_{d < c} PRF(d, c)`` keyed by
+    ``PRNGKey(seed)``: each unordered pair adds ``+m`` to one endpoint and
+    ``-m`` to the other, so the masks of ``peer_ids`` sum to 0 mod 2^32.
+    Over ``peer_ids = range(n)`` it is :func:`session_mask` under
+    ``PRNGKey(seed)``, bit for bit."""
+    k0, k1 = prf.key_words(prf.PRNGKey(seed))
+    return _signed_pair_sum(k0, k1, client_id, peer_ids, shape,
+                            device=device)
+
+
+def mask_update(q: torch.Tensor, client_id: int, peer_ids: Sequence[int],
+                seed: int) -> torch.Tensor:
+    """``q + pairwise_mask(...)``, wrapping mod 2^32."""
+    m = pairwise_mask(q.shape, client_id, peer_ids, seed, device=q.device)
+    return prf.to_int32(prf.words_of(q) + prf.words_of(m))
+
+
+def aggregate_masked(masked: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Modular (mod 2^32) sum of masked int32 contributions: the masks
+    cancel exactly.  Summed row by row in int64."""
+    acc = None
+    for m in masked:
+        w = prf.words_of(m)
+        acc = w if acc is None else acc.add_(w)
+    return prf.to_int32(acc)
+
+
+def secure_aggregate(updates: Sequence[torch.Tensor], bits: int,
+                     value_range: float, seed: int = 0,
+                     rng=None) -> torch.Tensor:
+    """The full protocol: quantize -> mask -> modular sum -> dequantize.
+
+    Returns the mean of ``updates`` (f32).  With ``rng`` (key words),
+    client ``c`` rounds stochastically under ``fold_in(rng, c)``; its mask
+    pairs it with every other client under ``PRNGKey(seed)``.
+    """
+    n = len(updates)
+    peers = list(range(n))
+    masked = [mask_update(quantize(u, bits, value_range,
+                                   None if rng is None
+                                   else prf.fold_in(rng, c)), c, peers, seed)
+              for c, u in enumerate(updates)]
+    total = aggregate_masked(masked)
+    del masked
+    return dequantize(total, bits, value_range, count=n) / torch.tensor(
+        n, dtype=torch.float32, device=total.device)
+
+
+def session_mask(shape, slot: int, num_slots: int, key,
+                 degree: int = 0, perm=None, *, device=None) -> torch.Tensor:
+    """Pairwise int32 mask of session position ``slot`` (shape ``shape``)."""
+    k0, k1 = prf.key_words(key)
+    return _signed_pair_sum(k0, k1, slot,
+                            _neighbor_slots(slot, num_slots, degree, perm),
+                            shape, device=device)
 
 
 def session_masks(shape, num_slots: int, key, degree: int = 0, perm=None, *,
@@ -273,7 +343,7 @@ def recovery_sweep(shape, present, lo: Sequence[int], hi: Sequence[int], key,
     gains = [(pres[b] - pres[a]) * x for a, b, x in zip(lo, hi, wts)]
     m = prf.signed_pair_sum(k0, k1, lo, hi, gains, _size(shape),
                             device=device)
-    return m.reshape(tuple(shape) if not isinstance(shape, int) else (shape,))
+    return m.reshape(_shape(shape))
 
 
 def recovery_mask(shape, present, num_slots: int, key, degree: int = 0,

@@ -17,6 +17,8 @@ start after its image tokens.  ``--window N`` serves the sliding-window
 (ring-buffer cache) decode variant of a full-attention model; ``--layers
 N`` cuts the depth to the first N layers (a hybrid keeps its pattern's
 first N kinds), for a model whose full depth does not fit one card.
+``--checkpoint DIR`` serves the ``params`` of a checkpoint (either
+package's ``checkpoint.save``) instead of the seed's weights.
 """
 from __future__ import annotations
 
@@ -150,10 +152,6 @@ def main(argv=None, *, session: Optional[dict] = None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.checkpoint:
-        raise NotImplementedError(
-            "--checkpoint: checkpoint restore is not ported yet (ROADMAP "
-            "Queue 1, item 1, with checkpoint/checkpoint.py)")
     from repro_torch.configs import registry
     from repro_torch.models.model import build_model
 
@@ -167,7 +165,13 @@ def main(argv=None, *, session: Optional[dict] = None):
     cfg = cfg.with_overrides(max_seq_len=max(cfg.max_seq_len, max_len))
     model = build_model(cfg, device=dev)
     key = prf.PRNGKey(args.seed)
-    params = model.init(key)
+    if args.checkpoint:
+        from repro_torch.checkpoint.checkpoint import restore
+        tree, manifest = restore(args.checkpoint, device=dev)
+        params = tree["params"]
+        print(f"restored step {manifest['step']}")
+    else:
+        params = model.init(key)
 
     if args.int8:
         n0 = sum(x.numel() * x.element_size() for x in T.leaves(params))

@@ -8,13 +8,18 @@ accounting.  Runs on the GPU unless ``--device cpu``:
       --rounds 100 [--device cpu]
 
 Both workloads' weights, every round key and the round's draws are the
-reference's (``kernels.prf``).  Training runs the dense family and the
-classifier; the other families serve (``launch.serve``) but do not train
-yet, and ``--checkpoint-dir`` waits for the checkpoint module.
+reference's (``kernels.prf``).  ``--arch`` takes every registry
+architecture: a VLM batch carries the reference's stub patch embeddings and
+an audio batch its stub frame embeddings, ``0.02 * normal(fold_in(key,
+r))`` per round; a MoE loss adds the router's aux loss.
+``--checkpoint-dir D`` saves ``{"params", "opt"}`` to ``D/step_<r+1>``
+every ``--checkpoint-every`` rounds, in the reference's format
+(``checkpoint.checkpoint``).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional
 
@@ -54,10 +59,6 @@ def main(argv=None, *, session: Optional[dict] = None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.checkpoint_dir:
-        raise NotImplementedError(
-            "--checkpoint-dir: checkpointing is not ported yet (ROADMAP "
-            "Queue 1, item 1, with checkpoint/checkpoint.py)")
     from repro_torch.configs.base import FLConfig
     from repro_torch.core.fl.accountant import RDPAccountant
     from repro_torch.core.fl.round import build_round_step, init_fl_state
@@ -74,7 +75,7 @@ def main(argv=None, *, session: Optional[dict] = None):
     if args.classifier:
         model, make_batch = _classifier_workload(args, dev)
     else:
-        model, make_batch = _llm_workload(args, dev)
+        model, make_batch = _llm_workload(args, key, dev)
     params = model.init(key)
     n_params = sum(int(x.numel()) for x in T.leaves(params))
     print(f"model params: {n_params:,}")
@@ -101,6 +102,12 @@ def main(argv=None, *, session: Optional[dict] = None):
                   f"clip%={float(metrics['clip_fraction']):.2f} "
                   f"|u|={float(metrics['update_norm']):.3f} "
                   f"eps(1e-6)={eps:.2f} ({time.time() - t0:.1f}s)")
+        if args.checkpoint_dir and (r + 1) % args.checkpoint_every == 0:
+            from repro_torch.checkpoint.checkpoint import save
+            path = os.path.join(args.checkpoint_dir, f"step_{r + 1}")
+            save(path, {"params": state.params, "opt": state.opt_state},
+                 step=r + 1, metadata={"arch": args.arch, "fl": vars(args)})
+            print(f"  checkpointed -> {path}")
     print(f"done in {time.time() - t0:.1f}s")
     if session is not None:
         session.update(model=model, state=state, metrics=history)
@@ -127,24 +134,28 @@ def _classifier_workload(args, dev):
     return model, make_batch
 
 
-def _llm_workload(args, dev):
+def _llm_workload(args, key, dev):
     from repro_torch.configs import registry
     from repro_torch.data.synthetic import fl_token_batch
     from repro_torch.models.model import build_model
 
     cfg = registry.get_config(args.arch, reduced=args.reduced)
-    if cfg.family != "dense" or cfg.block_pattern is not None:
-        raise NotImplementedError(
-            f"--arch {args.arch}: training the {cfg.family} family is not "
-            "ported yet (ROADMAP Queue 1, item 2, with optim/); it serves "
-            "through repro_torch.launch.serve")
     cfg = cfg.with_overrides(max_seq_len=max(args.seq_len, 64))
     model = build_model(cfg, device=dev)
+    stub = {"vlm": ("patch_embeds", cfg.num_image_tokens),
+            "audio": ("audio_embeds", cfg.encoder_seq)}.get(cfg.family)
 
     def make_batch(r):
         b = fl_token_batch(args.cohort, args.seq_len, cfg.vocab_size,
                            seed=args.seed * 7919 + r)
-        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        if stub is not None:
+            name, n = stub
+            z = prf.normal(prf.fold_in(key, r),
+                           (args.cohort, 1, n, cfg.d_model), device=dev)
+            batch[name] = z * torch.tensor(0.02, dtype=torch.float32,
+                                           device=dev)
+        return batch
 
     return model, make_batch
 

@@ -105,16 +105,26 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     cum_h = cum.permute(0, 1, 3, 2)  # (b,n,nh,Q)
 
     # --- intra-chunk (dual / attention-like form) ---
-    # M[h,q,k] = exp(cum_q - cum_k) [q >= k] * (C_q . B_k) * dt_k, built in
-    # place in (b, n, nh, Q, Q), then one batched product with x
+    # M[h,q,k] = exp(cum_q - cum_k) [q >= k] * (C_q . B_k) * dt_k in
+    # (b, n, nh, Q, Q), then one batched product with x.  The upper
+    # triangle is set to -inf before the exp: the same zeros as the
+    # reference's where(tri, exp(rel), 0), but where exp(cum_q - cum_k)
+    # overflows there (a chunk's decay past e^88) its gradient stays 0
+    # rather than the reference's 0 * inf = NaN.  Without autograd
+    # (serving) M is built in place, one buffer; under autograd each factor
+    # stays for the backward pass, so the same ops run out of place.
     M = cum_h[..., :, None] - cum_h[..., None, :]
-    M.exp_()
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    M.masked_fill_(~tri, 0.0)
-    cb = torch.einsum("bnqs,bnks->bnqk", Cc, Bc)  # (b,n,Q,K)
-    M.mul_(cb[:, :, None])
+    cb = torch.einsum("bnqs,bnks->bnqk", Cc, Bc)[:, :, None]  # (b,n,1,Q,K)
+    dtk = dtc.permute(0, 1, 3, 2)[..., None, :]
+    if M.requires_grad:
+        M = M.masked_fill(~tri, -math.inf).exp() * cb * dtk
+    else:
+        M.masked_fill_(~tri, -math.inf)
+        M.exp_()
+        M.mul_(cb)
+        M.mul_(dtk)
     del cb
-    M.mul_(dtc.permute(0, 1, 3, 2)[..., None, :])
     y = torch.matmul(M, xc.permute(0, 1, 3, 2, 4))  # (b,n,nh,Q,hd)
     del M
 

@@ -356,3 +356,66 @@ def test_cuda_tier_matches_the_cpu_tier(cuda, mode, two_level, bits):
     assert all(torch.equal(a, b.cpu()) for a, b in zip(T.leaves(pc),
                                                        T.leaves(pg)))
     assert all(torch.equal(a, b) for a, b in zip(bc, bg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree", [0, 4])
+def test_cuda_encode_masked_contribution_through_k1(cuda, degree):
+    """``encode_masked_contribution`` launches K1 on the card; its rows
+    equal the plain branch (``_stream_quantize`` + ``session.mask``) on the
+    card and the CPU's, and a flush with two dropped slots recovers the
+    survivors' unmasked aggregate bit for bit."""
+    from repro_torch.core.fl import aggregation as agg
+    spec = agg.make_spec(FLConfig(clip_norm=1.0, secure_agg_bits=32,
+                                  secure_agg_degree=degree,
+                                  noise_multiplier=0.0), 8)
+    sess = agg.make_mask_session(spec, prf.PRNGKey(77))
+    g = torch.Generator().manual_seed(degree)
+    xs = [torch.randn(100_003, generator=g) * 1e-3 for _ in range(8)]
+    rows, plain = [], []
+    ksa.reset_counts()
+    for b, x in enumerate(xs):
+        rng = prf.fold_in(prf.PRNGKey(88), b)
+        row = agg.encode_masked_contribution(x.to(cuda), 1.0, b, spec, sess,
+                                             rng)[0]
+        alt = agg.encode_masked_contribution(x.to(cuda), 1.0, b, spec, sess,
+                                             rng, use_kernel=False)[0]
+        cpu = agg.encode_masked_contribution(x, 1.0, b, spec, sess, rng)[0]
+        assert torch.equal(row, alt) and torch.equal(row.cpu(), cpu)
+        rows.append(row)
+        plain.append(agg.encode_contribution(x.to(cuda), 1.0, spec, rng)[0])
+    assert ksa.quantize_mask_prf.launches == 8
+    present = [1, 1, 0, 1, 1, 0, 1, 1]
+    got = agg.aggregate_masked_buffer(torch.stack(rows), present, 6.0, spec,
+                                      sess, (0, 9))
+    want = agg.aggregate_masked_buffer(torch.stack(plain), present, 6.0,
+                                       spec, None, (0, 9), masked=False)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-780m",
+                                  "recurrentgemma-2b", "internvl2-76b",
+                                  "whisper-tiny"])
+def test_cuda_family_round_matches_the_cpu_round(cuda, arch):
+    """One reduced round of each non-dense family through ``train.main`` on
+    the card against the CPU's: the printed loss and norms within 1e-4, the
+    params within 1e-5 (autograd and f32 sums in other orders; a MoE
+    top-k near-tie could route a token apart, none does at this seed)."""
+    from repro_torch.launch import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    argv = ["--arch", arch, "--rounds", "1", "--cohort", "4", "--seq-len",
+            "16", "--noise", "0"]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        session = {}
+        kdp.reset_counts()
+        assert train.main(argv + ["--device", dev], session=session) == 0
+        out[dev] = session
+    assert kdp.sq_norms.plain_calls == 0 and kdp.sq_norms.launches > 0
+    for k in ("loss", "update_norm", "clip_fraction"):
+        assert out["cuda"]["metrics"][0][k] == pytest.approx(
+            out["cpu"]["metrics"][0][k], abs=1e-4)
+    for a, b in zip(T.leaves(out["cpu"]["state"].params),
+                    T.leaves(out["cuda"]["state"].params)):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-5)

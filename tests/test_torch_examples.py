@@ -15,16 +15,24 @@ on the same draws:
   loss rises at the full 400 pushes, see the twin's docstring);
 - ``serve_on_device``: ``serve.main`` with the example's argv prints the
   reference's int8 and sample lines;
+- ``fl_llm_finetune``: 3 rounds at cohort 4, plain and ``--masked
+  --chunk-elems 65536`` (9 chunks, one mask session each): the arch and
+  plan lines equal, each round's loss and clip fraction and the final loss
+  line within a unit of the printed digit (the round's ~1e-5); the
+  reference's "the loss fell" assert is taken out of its copy (the twin
+  reports it); the twin's checkpoint restores in the reference;
 - ``observability_smoke`` is held in ``tests/test_torch_obs.py``.
 """
 import io
 import re
+import sys
 from contextlib import redirect_stdout
 from pathlib import Path
 
 import pytest
 
-from repro_torch.examples import async_vs_sync, quickstart, serve_on_device
+from repro_torch.examples import (async_vs_sync, fl_llm_finetune, quickstart,
+                                   serve_on_device)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -92,3 +100,41 @@ def test_serve_on_device_twin_prints_the_reference_lines():
     assert got[3] == want[3]  # the sampled tokens
     assert got[1].startswith("prefill: 4x32 in ")
     assert got[2].startswith("decode: 16 steps in ")
+
+
+@pytest.mark.parametrize("extra", [[], ["--masked", "--chunk-elems",
+                                        "65536"]])
+def test_fl_llm_finetune_twin_prints_the_reference_lines(extra, tmp_path,
+                                                         monkeypatch):
+    import jax
+    import numpy as np
+
+    from repro.checkpoint import checkpoint as jck
+    from repro_torch import tree as T
+    argv = ["--rounds", "3", "--cohort", "4"] + extra
+    session = {}
+    got = _run_port(lambda a: fl_llm_finetune.main(a, session=session),
+                    argv + ["--device", "cpu", "--checkpoint-dir",
+                            str(tmp_path)])
+    monkeypatch.setattr(sys, "argv", ["fl_llm_finetune.py"] + argv)
+    want = _run_reference("fl_llm_finetune", [(
+        'assert np.mean(losses[-10:]) < losses[0], '
+        '"training must improve the loss"\n', "")])
+    assert got[:2] == want[:2]  # arch=... params=..., plan: ...
+    if extra:
+        assert "9 chunk(s)" in got[1] and "masked=True" in got[1]
+    rows = [(_numbers(g), _numbers(w)) for g, w in zip(got[2:4], want[2:4])]
+    for g, w in rows:  # round r  loss=  clip%=  tok/s=  eps=inf
+        assert g[0] == w[0]
+        assert g[1] == pytest.approx(w[1], abs=1.01e-4)
+        assert g[2] == pytest.approx(w[2], abs=1.01e-2)
+    g, w = _numbers(got[5]), _numbers(want[5])  # "loss a -> b (3 rounds"
+    assert g[:3] == pytest.approx(w[:3], abs=1.01e-3)
+    assert got[6] in ("training improved the loss", "the loss did not fall "
+                      "(the reference example asserts it does)")
+    assert got[-1] == "checkpointed."
+    tree, man = jck.restore(str(tmp_path / "step_3"))
+    assert man["step"] == 3
+    for a, b in zip(jax.tree.leaves(tree["params"]),
+                    T.leaves(session["state"].params)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())

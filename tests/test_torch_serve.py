@@ -438,9 +438,29 @@ def test_serve_main_window_serves_the_ring_buffer_variant(capsys):
                                    atol=2e-4)
 
 
-def test_serve_main_refuses_a_checkpoint():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 1,"):
-        tserve.main(["--device", "cpu", "--checkpoint", "ckpt"])
+def test_serve_main_serves_a_reference_checkpoint(tmp_path, capsys):
+    """``--checkpoint`` of a checkpoint that the reference's train CLI
+    wrote: the port prints the reference's ``restored step`` and
+    ``sample:`` lines, and serves the restored weights."""
+    from repro.launch import train as jtrain
+    assert jtrain.main(["--rounds", "1", "--cohort", "4", "--seq-len", "16",
+                        "--checkpoint-dir", str(tmp_path),
+                        "--checkpoint-every", "1"]) == 0
+    capsys.readouterr()
+    argv = ["--batch", "2", "--prompt-len", "8", "--decode-tokens", "4",
+            "--checkpoint", str(tmp_path / "step_1")]
+    assert jserve.main(argv) == 0
+    want = capsys.readouterr().out.splitlines()
+    session = {}
+    assert tserve.main(argv + ["--device", "cpu"], session=session) == 0
+    got = capsys.readouterr().out.splitlines()
+    assert got[0] == want[0] == "restored step 1"
+    assert got[-1] == want[-1]
+    fresh = {}
+    assert tserve.main(argv[:-2] + ["--device", "cpu"], session=fresh) == 0
+    capsys.readouterr()
+    assert not torch.equal(session["params"]["embedding"]["embed"],
+                           fresh["params"]["embedding"]["embed"])
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
