@@ -101,6 +101,18 @@ Phases (each prints its seconds):
      faults=FaultPlan(...))`` on the classifier (finite losses, the final
      loss below the first decile's); the sharded round on the classifier
      (4 leaves; masked == unmasked, within 1e-6 of the single-host round);
+  2i. (run right after 2f) the tier across processes: phase 2f's runs
+     (``client`` and ``tee_stream`` in both topologies, the batched ``tee``
+     tree, the bits-16 ``client`` tree with 2 dropped clients and a dead
+     leaf, sketch@0.2) and its sharded round (masked and unmasked) through
+     ``repro_torch.launch.dist.run`` on an NCCL world of one rank per card
+     (``torch.cuda.device_count()``) and on gloo worlds of 2 and 4 ranks
+     sharing cuda:0, every run in every world: each rank holds and encodes only its
+     block of leaves and the ranks' int32 partials meet in an int64
+     ``all_reduce`` taken mod 2^32 (gloo stages it through the host);
+     every rank's final params must be phase 2f's (SHA-256 of the bytes);
+     each rank's push, flush (leaf partials / combine), combine bytes and
+     peak memory;
   2h. (run after 2d) the standalone protocol, checkpoints and training the
      other families: ``encode_masked_contribution`` through K1 at the
      embedding chunk, ``torch.equal`` to its plain branch on the card; 8
@@ -135,6 +147,9 @@ Phases (each prints its seconds):
      (K1 per chunk of each masked encode, K5 per chunk of each packed
      encode or landing, K2's PRF lane per chunk per leaf per flush, K4 per
      chunk of each sketch push, K3/K6/K7 per leaf / client leaf / leaf);
+     phase 2i: each world's launches summed over its ranks as one process
+     would launch them (every landed row encoded once, on its leaf's rank;
+     K7 once per rank in the rounds);
      phase 2h: K10 per layer per decode step of the served checkpoint and
      of ``generate`` on the trained params, K1 once per protocol row and
      K7 once per protocol flush, per family round K3 once per leaf, K6
@@ -215,6 +230,9 @@ SKETCH_RATE = 0.2  # the builders' rate in results/compression_tradeoff.csv
 # phase 2f: the aggregation tier over the same model, 4 leaves x 2 slots
 # (the flat server's buffer of 8)
 TIER_LEAVES, TIER_LEAF_BUFFER = 4, 2
+# phase 2i: the same runs across processes (the published widths; a CPU
+# rehearsal sets the reduced config)
+DIST_REDUCED = False
 EMBED = 151_936 * 1536  # the embedding chunk, the main path's largest
 # phase 2c: the serve CLI at qwen2-1.5b's full width and depth
 SERVE_ARGS = ["--arch", "qwen2-1.5b", "--full", "--batch", "8",
@@ -1094,11 +1112,14 @@ def _peak_gib(torch, reset: bool = False) -> float:
     return peak
 
 
-def tier_path(torch, mp, counts: dict, smi: str) -> dict:
-    """Phase 2f.  ``counts[run]`` gets the kernel counts of each run; returns
-    the launches each run must show (nonzero kernels only)."""
+def tier_path(torch, mp, counts: dict, smi: str, digests: dict) -> dict:
+    """Phase 2f.  ``counts[run]`` gets the kernel counts of each run and
+    ``digests[run]`` the SHA-256 of its final params (what phase 2i's
+    ranks must reproduce); returns the launches each run must show
+    (nonzero kernels only)."""
     from repro_torch import tree as T
     from repro_torch.kernels import secure_agg as ksa
+    from repro_torch.testing import tree_digest
     C = EXPECT_CHUNKS
     pushes = BUFFER + 6
     want = {}
@@ -1125,6 +1146,7 @@ def tier_path(torch, mp, counts: dict, smi: str) -> dict:
             want[f"tier-{mode}-{topo}"] = {"quantize_mask_prf": pushes * C}
             check(trees_equal(torch, got, ref),
                   f"tier {mode}/{topo} != the flat AsyncServer")
+            digests[f"tier-{mode}-{topo}"] = tree_digest(got)
             log(f"  tier {mode}, {topo} topology ({TIER_LEAVES} leaves x "
                 f"{TIER_LEAF_BUFFER}): params bit-equal to the flat "
                 f"AsyncServer at buffer {BUFFER} (full session + recovered "
@@ -1144,6 +1166,7 @@ def tier_path(torch, mp, counts: dict, smi: str) -> dict:
     peaks["tee-tree"] = _peak_gib(torch, reset=True)
     want["tier-tee"] = {ksa.PRF_LANE: 2 * C + 2 * TIER_LEAVES * C}
     check(trees_equal(torch, got, ref), "tier tee/tree != flat tee")
+    digests["tier-tee"] = tree_digest(got)
     log("  tier tee (batched), tree: params bit-equal to the flat tee "
         "AsyncServer (full session + 6-of-8 flush)")
     rows.append(("flat AsyncServer tee",) + flat_ms)
@@ -1167,6 +1190,7 @@ def tier_path(torch, mp, counts: dict, smi: str) -> dict:
     sync(torch)
     death_ms = (time.perf_counter() - t0) * 1e3
     got = srv.params
+    digests["tier-leafdeath"] = tree_digest(got)
     fm = dict(srv.fault_metrics)
     del srv
     from repro_torch.core.fl.async_fl import AsyncServer
@@ -1205,6 +1229,7 @@ def tier_path(torch, mp, counts: dict, smi: str) -> dict:
     want["tier-sketch"] = {"rotate_quantize_prf": 2 * pushes * C}
     check(trees_equal(torch, got, ref),
           "compressed tier != the compressed flat server")
+    digests["tier-sketch"] = tree_digest(got)
     log(f"  tier client+sketch@{SKETCH_RATE}, tree: params bit-equal to the "
         "compressed flat AsyncServer (full session + recovered 6-of-8)")
     rows.append(("flat AsyncServer client+sketch",) + flat_ms)
@@ -1344,6 +1369,7 @@ def tier_path(torch, mp, counts: dict, smi: str) -> dict:
                           "dequantize": 3 * Lc}
     check(trees_equal(torch, outs["sharded"], outs["sharded-masked"]),
           "sharded round: masked != unmasked")
+    digests["tier-round"] = tree_digest(outs["sharded"])
     worst = max(float((a - b).abs().max()) for a, b in zip(
         T.leaves(outs["sharded"]), T.leaves(outs["single-host"])))
     check(worst <= 1e-6, f"sharded round vs single host: {worst:.3g}")
@@ -1364,6 +1390,142 @@ def tier_path(torch, mp, counts: dict, smi: str) -> dict:
         + ", ".join(f"{k} {launched.get(k, 0)}" for k in (
             "quantize_mask_prf", "weighted_quantize_accum", ksa.PRF_LANE,
             "rotate_quantize_prf", "pack_residues", "unpack_residues")))
+    return want
+
+
+# ---------------------------------------------------------------------------
+# phase 2i: the aggregation tier across processes
+# ---------------------------------------------------------------------------
+def _dist_cases(seed: int):
+    """Phase 2f's tier runs and sharded rounds as ``repro_torch.testing``
+    cases (same deltas, slots, keys and flushes; each arrival pushed alone,
+    which lands the rows of the 2f batches bit for bit)."""
+    from repro_torch.testing import ModelSource, RoundCase, TierCase
+    source = ModelSource("qwen2-1.5b", NUM_LAYERS, seed, seed * 7919 + 1000,
+                         DELTA_SCALE, reduced=DIST_REDUCED)
+
+    def fl(bits, **kw):
+        return dict(cohort_size=BUFFER, clip_norm=1.0, noise_multiplier=0.0,
+                    secure_agg_bits=bits, param_chunk_elems=CHUNK_ELEMS, **kw)
+
+    def one_by_one(idx, version, slots):
+        return [("push", (i,), version, (s,)) for i, s in zip(idx, slots)]
+
+    sessions = (one_by_one(range(BUFFER), 0, range(BUFFER))
+                + one_by_one(range(BUFFER, BUFFER + 6), 1, (0, 1, 2, 4, 5, 7))
+                + [("flush", None)])
+    death = (one_by_one((0, 2, 3), 0, (0, 2, 3)) + [("dead", 1)]
+             + one_by_one((4, 5, 7), 0, (4, 5, 7)) + [("flush", None)])
+    L, Bl = TIER_LEAVES, TIER_LEAF_BUFFER
+    cases = [TierCase(f"tier-{mode}-{'tree' if tl else 'flat'}", mode, tl,
+                      L, Bl, fl(32), sessions)
+             for mode in ("client", "tee_stream") for tl in (False, True)]
+    cases += [TierCase("tier-tee", "tee", True, L, Bl, fl(32), sessions),
+              TierCase("tier-leafdeath", "client", True, L, Bl, fl(16),
+                       death),
+              TierCase("tier-sketch", "client", True, L, Bl,
+                       fl(32, compress_mode="sketch",
+                          compress_rate=SKETCH_RATE), sessions)]
+    rfl = dict(cohort_size=CLASSIFIER_COHORT, local_steps=1, local_lr=0.2,
+               clip_norm=1.0, secure_agg_bits=32, secure_agg_degree=4)
+    cases += [RoundCase(name, dict(rfl, secure_agg_masked=masked),
+                        CLASSIFIER_COHORT, L, seed=0, data_seed=9)
+              for name, masked in (("tier-round", False),
+                                   ("tier-round-masked", True))]
+    return source, cases
+
+
+def _dist_want(case, world: int) -> dict:
+    """The launches a case must show summed over the ranks: every landed
+    row is encoded once, on its leaf's rank; every rank decodes."""
+    from repro_torch.kernels import secure_agg as ksa
+    C, pushes = EXPECT_CHUNKS, BUFFER + 6
+    if case.name == "tier-tee":
+        return {ksa.PRF_LANE: 2 * TIER_LEAVES * C}
+    if case.name == "tier-leafdeath":
+        return dict.fromkeys(("quantize_mask_prf", "pack_residues",
+                              "unpack_residues"), 6 * C)
+    if case.name == "tier-sketch":
+        return {"rotate_quantize_prf": pushes * C}
+    if case.name.startswith("tier-round"):
+        Lc = CLASSIFIER_LEAVES
+        return {"sq_norms": TIER_LEAVES * Lc,
+                "quantize_mask": CLASSIFIER_COHORT * Lc,
+                "dequantize": world * Lc}
+    return {"quantize_mask_prf": pushes * C}
+
+
+def dist_tier_path(torch, seed: int, digests: dict, counts: dict,
+                   smi: str) -> dict:
+    """Phase 2i: phase 2f's runs on ``torch.distributed`` worlds on the
+    card, every run in every world: gloo worlds of 2 and 4 ranks sharing
+    cuda:0 (NCCL refuses two ranks on one device; gloo's combine stages the
+    partials through the host, at ~0.5-1 GB/s a rank,
+    ``tools/gloo_combine.py``) and an NCCL world of one rank per card.
+    Every rank of every run
+    must end with phase 2f's params (SHA-256 of the bytes, the digests 2f
+    took); the ranks' launches, summed, must be exact.  Returns the
+    launches each world's runs must show (``counts[dist-W-run]`` gets the
+    summed counts)."""
+    from repro_torch.launch import dist
+    from repro_torch.testing import tier_world
+    source, cases = _dist_cases(seed)
+    worlds = [(2, "gloo"), (4, "gloo")]
+    if DEVICE == "cuda":
+        worlds.append((torch.cuda.device_count(), "nccl"))
+    want = {}
+    for world, backend in worlds:
+        t0 = time.perf_counter()
+        ranks = dist.run(tier_world, world, [source], cases, device=DEVICE,
+                         backend=backend, digest=True)
+        wall = time.perf_counter() - t0
+        for case in cases:
+            res = [r[case.name] for r in ranks]
+            ref = case.name if case.name != "tier-round-masked" \
+                else "tier-round"
+            check(all(r["params"] == digests[ref] for r in res),
+                  f"{backend} world of {world}: {case.name} differs from "
+                  "phase 2f's one-process result")
+            path = f"dist{world}{backend}-{case.name}"
+            summed = {}
+            for r in res:
+                for k, v in r["counts"].items():
+                    s = summed.setdefault(k, {"launches": 0,
+                                              "plain_calls": 0})
+                    s["launches"] += v["launches"]
+                    s["plain_calls"] += v["plain_calls"]
+            counts[path] = summed
+            want[path] = _dist_want(case, world)
+            for r in res:
+                sp = r["spans"]
+
+                def ms(name):
+                    return " / ".join(f"{d:.1f}" for d in sp.get(name, []))
+
+                if case.name.startswith("tier-round"):
+                    stages = (f"inputs {ms('round.inputs')} ms, setup "
+                              f"{ms('round.setup')} ms, round "
+                              f"{ms('round.execute')} ms: local SGD "
+                              f"{ms('round.local_sgd')}, combine "
+                              f"{ms('combine')}, decode "
+                              f"{ms('round.decode')}")
+                else:
+                    push = sum(sum(sp.get(k, [])) for k in
+                               ("ingest", "encode_push", "push_encoded"))
+                    stages = (f"push {push:.1f} ms in all; flushes "
+                              f"{ms('decode')} ms: leaf partials "
+                              f"{ms('leaf_partials')}, combine "
+                              f"{ms('combine')}")
+                log(f"  {backend} {world} rank {r['rank']} {case.name}: "
+                    f"{stages} ms; combine {r['combine_bytes']:,} B; peak "
+                    f"{r['peak_gib']:.2f} GiB; {r['wall_s']:.1f} s (+ "
+                    f"{r['build_s']:.1f} s params and deltas, "
+                    f"{r['digest_s']:.1f} s digest)")
+        devices = sorted({str(dist.rank_device(r, DEVICE))
+                          for r in range(world)})
+        log(f"  {backend} world of {world} rank(s) on {', '.join(devices)}: "
+            f"{len(cases)} runs equal to phase 2f's ({wall:.1f} s with "
+            f"spawn); {smi}")
     return want
 
 
@@ -2727,22 +2889,13 @@ def _entry(name, source, replaces, launches, ms, plain_ms, ops, nbytes, *,
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels import bitagg as k9
-    from repro_torch.kernels import dp_clip as kdp
-    from repro_torch.kernels import flash_decode as kfd
-    from repro_torch.kernels import secure_agg as ksa
-    ksa.reset_counts()
-    kfd.reset_counts()
-    kdp.reset_counts()
-    k9.reset_counts()
+    from repro_torch.testing import reset_kernel_counts
+    reset_kernel_counts()
 
 
 def kernel_counts() -> dict:
-    from repro_torch.kernels import bitagg as k9
-    from repro_torch.kernels import dp_clip as kdp
-    from repro_torch.kernels import flash_decode as kfd
-    from repro_torch.kernels import secure_agg as ksa
-    return {**ksa.counts(), **kfd.counts(), **kdp.counts(), **k9.counts()}
+    from repro_torch import testing
+    return testing.kernel_counts()
 
 
 def main() -> int:
@@ -2796,9 +2949,15 @@ def main() -> int:
         counts["compressed"] = kernel_counts()
 
     with Phase("phase 2f: the aggregation tier at full width"):
-        tier_want = tier_path(torch, mp, counts, smi)
+        digests = {}
+        tier_want = tier_path(torch, mp, counts, smi, digests)
+        mp_seed = mp.seed
         del mp
         torch.cuda.empty_cache()
+
+    with Phase("phase 2i: the aggregation tier across processes"):
+        tier_want.update(dist_tier_path(torch, mp_seed, digests, counts,
+                                        smi))
 
     with Phase("phase 2c: serving qwen2-1.5b at full width and depth"):
         serve_path(torch, args.seed, counts, smi)

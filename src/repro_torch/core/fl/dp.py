@@ -38,13 +38,13 @@ def clip_update(update, clip_norm: float) -> Tuple:
     return clipped, nrm, scale < 1.0
 
 
-def add_noise(update, key, stddev: float):
+def add_noise(update, rng, stddev: float):
     """Add isotropic Gaussian noise with the given std to every leaf: leaf
-    ``i`` draws ``normal(split(key, n_leaves)[i], shape)``, as the JAX
+    ``i`` draws ``normal(split(rng, n_leaves)[i], shape)``, as the JAX
     function does."""
     paths, leaves = T.flatten(update)
     out = [x + (stddev * prf.normal(k, x.shape, device=x.device)).to(x.dtype)
-           for x, k in zip(leaves, prf.split(key, len(leaves)))]
+           for x, k in zip(leaves, prf.split(rng, len(leaves)))]
     return T.unflatten(paths, out)
 
 

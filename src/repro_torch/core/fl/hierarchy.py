@@ -8,11 +8,9 @@ leaf/root tier decodes bit-identically to the single-host engine at
 one state layout, a ``(num_leaves, leaf_buffer, D)`` buffer per chunk:
 
 **One global session** (``two_level=False``): ``num_leaves * leaf_buffer``
-slots of ONE mask session.  On one device its flush is the flat engine's
-step (``async_fl.build_masked_async_buffer_step`` /
-``build_async_buffer_step``) over the leaf-major buffer viewed as
-``(B, D)``: the per-leaf partials of the JAX tier only place the sum on a
-leaf's device, which one GPU does not need.
+slots of ONE mask session.  Each leaf sums its present slots and sweeps a
+shard of the session's recovery edges (:func:`_partition_edges`); edges
+cross leaves, the sweep needs only the replicated present flags.
 
 **A session tree** (``two_level=True``): every leaf masks its rows under
 its OWN ``leaf_buffer``-slot session and flushes a still-masked partial,
@@ -20,26 +18,34 @@ plus its root-session mask while it is alive, into a ``num_leaves``-slot
 root session.  A client dropout inside leaf l is recovered by leaf l's own
 sweep; a dead leaf is one absent root slot, recovered by one root sweep.
 
-How the session tree's JAX constructs map onto one GPU:
+Where the leaves live (``mesh``, see ``launch.mesh``):
 
-- the ``shard_map`` over the leaf axis is a loop over logical leaves, each
-  working on its own slice of the device-resident buffer (every kernel of
-  the per-leaf work launches per leaf);
-- the field-modulus ``psum`` of the leaf partials is a wraparound int32
-  sum over the leaf axis in masked int64 arithmetic (exact, so the order
-  does not matter);
-- arrival batches are routed by destination leaf on the host
-  (``_route_by_leaf``) and each leaf encodes only its own rows, with PRF
-  streams keyed by the GLOBAL slot, so rows are bit-identical to
-  sequential single-host pushes;
-- session-wide stochastic draws of the batched ``tee`` flush are the
-  global ``(B, D)`` draws, taken per leaf row range.
+- one process (``mesh=None``, or a mesh without a process group): every
+  leaf on one device, the ``shard_map`` over the leaf axis a loop over
+  logical leaves (every kernel of the per-leaf work launches per leaf).
+  There ``ShardedAsyncServer``'s flat topology flushes through the flat
+  engine's step
+  (``async_fl.build_masked_async_buffer_step`` /
+  ``build_async_buffer_step``) over the buffer viewed as ``(B, D)``;
+- a ``torch.distributed`` group (SPMD, as ``shard_map``): every rank runs
+  the same calls on the same inputs and keeps the same host metadata, but
+  holds, encodes, sums and sweeps only its contiguous block of leaves on
+  its own device; :func:`combine` is the field-modulus ``psum`` (an int64
+  ``all_reduce`` of the partials' uint32 words, then mod 2^32), and every
+  rank decodes to the same params (the reference's ``out_specs=P()``).
+
+In both, arrival batches are routed by destination leaf on the host
+(``_route_by_leaf``) and a leaf encodes only its own rows, with PRF
+streams keyed by the GLOBAL slot, so rows are bit-identical to sequential
+single-host pushes; session-wide stochastic draws of the batched ``tee``
+flush are the global ``(B, D)`` draws, taken per leaf row range.
 
 The kernels run unconditionally, as in the flat engines: K1
 (``quantize_mask_prf``) for every uncompressed masked streamed row, K4
 (``rotate_quantize_prf``) for sketch rows, K2 (``weighted_quantize_accum``)
-per leaf in the batched ``tee`` flush, and K5 (``pack_residues``/
-``unpack_residues``) on the sub-32-bit wire and the enclave wire.
+per leaf (tree) or per process (flat) in the batched ``tee`` flush, and K5
+(``pack_residues``/``unpack_residues``) on the sub-32-bit wire and the
+enclave wire.
 """
 from __future__ import annotations
 
@@ -61,6 +67,7 @@ from repro_torch.core.fl.async_fl import (FAULT_METRIC_KEYS, ClientPush,
                                           enclave_wire, staleness_weight)
 from repro_torch.core.fl.server_opt import build_server_opt
 from repro_torch.kernels import prf
+from repro_torch.launch.mesh import leaf_range, leaves_per_device
 
 # fold-in tags deriving the session tree's keys from one round key
 LEAF_SESSION_TAG = 0x1EAF
@@ -148,41 +155,131 @@ def _present_tensor(present, B: int, device) -> Tuple[List[int], torch.Tensor]:
     return pres, torch.tensor(pres, dtype=torch.float32, device=device)
 
 
-def _leaf_uniforms(rng, B: int, leaf: int, Bl: int, plan, device):
-    """Rows ``leaf*Bl .. leaf*Bl+Bl-1`` of the batched flush's global
-    ``(B, padded)`` uniform draws (per-row counter streams, so a row range
-    is generated alone)."""
+def _row_uniforms(rng, B: int, rows: slice, plan, device):
+    """Rows ``rows`` of the batched flush's global ``(B, padded)`` uniform
+    draws (per-row counter streams, so a row range is generated alone)."""
     r0, r1 = agg.row_uniform_keys(rng, B)
-    rows = slice(leaf * Bl, (leaf + 1) * Bl)
     return tuple(prf.uniform_block(r0[rows], r1[rows], ck.padded,
                                    offset=ck.offset, device=device)
                  for ck in plan.chunks)
 
 
-# ---------------------------------------------------------------------------
-# The session tree (two_level=True): leaf sessions -> root session
-# ---------------------------------------------------------------------------
-def build_two_level_masked_step(params, fl_cfg, *, num_leaves: int,
-                                leaf_buffer: int, recover: bool = True,
-                                masked: bool = True, device=None):
-    """The session-tree flush of the STREAMED engines (off / client /
-    tee_stream): ``step(params, opt_state, mbufs, present, weights,
-    staleness, norms, clips, session_key, rng, ops=None)`` over per-chunk
-    ``(num_leaves, leaf_buffer, padded)`` int32 buffers, with rows masked
-    under per-leaf sessions (:func:`leaf_session`) and ``present`` and the
-    per-slot tensors in ``(num_leaves, leaf_buffer)`` or flat ``(B,)``
-    layout.
+def _partition_edges(session: sa.MaskSession, num_shards: int):
+    """Split the session mask graph's edge list into ``num_shards`` equal
+    shards, padded with weight-0 edges.  Returns (lo, hi, w) host-int
+    lists of ``num_shards * per`` edges; shard ``i`` is
+    ``[i * per, (i + 1) * per)``.  Any partition of the edges gives the
+    same recovery term (partial sums commute mod 2^32)."""
+    lo, hi = session.edges()
+    E = len(lo)
+    per = max(1, -(-E // num_shards))
+    pad = num_shards * per - E
+    return (list(lo) + [0] * pad, list(hi) + [0] * pad,
+            [1] * E + [0] * pad)
 
-    Leaf tier: the gated modular sum of the leaf's present slots + the
-    leaf's OWN recovery sweep (its local edges, its local presence) + its
-    root-session mask while the leaf is alive.  Root tier: the wraparound
-    sum of the partials + the root recovery of DEAD leaves (one
-    ``num_leaves``-slot sweep), then decode / normalize / central noise /
-    server optimizer.  Bit-identical to the single-host engines at
-    ``buffer_size = B``, and to the flat survivor aggregate under client
-    and whole-leaf dropout.
+
+def _world(mesh) -> Tuple[int, int]:
+    """(this process's axis position, the number of processes) of a mesh
+    backed by a process group; (0, 1) otherwise."""
+    if mesh is None or mesh.group is None:
+        return 0, 1
+    return mesh.rank, len(mesh.devices)
+
+
+def combine(accs: Sequence[torch.Tensor], mesh, telemetry=None,
+            **labels) -> List[torch.Tensor]:
+    """The root combine of int32 leaf partials across the mesh's ranks, in
+    place: each partial's words (int32 bits as uint32 values in int64)
+    summed by an int64 ``all_reduce`` (at most ``ranks * 2^32``, exact),
+    then taken mod 2^32 back to int32, in tiles.  No collective sums
+    signed int32 (its overflow is not defined).  A no-op without a process
+    group.  The fenced span ``combine`` carries the bytes each rank sends
+    (8 per element)."""
+    accs = list(accs)
+    if mesh is None or mesh.group is None:
+        return accs
+    import torch.distributed as tdist
+    _, W = _world(mesh)
+    tel = telemetry if telemetry is not None else tele.get_default()
+    nbytes = 8 * sum(int(a.numel()) for a in accs)
+    with tel.span("combine", ranks=W, bytes=nbytes, **labels) as sp:
+        for a in accs:
+            flat = a.view(-1)
+            for s in range(0, flat.numel(), prf.TILE):
+                t = slice(s, s + prf.TILE)
+                w = prf.words_of(flat[t])
+                tdist.all_reduce(w, group=mesh.group)
+                flat[t] = prf.to_int32(w)
+        sp.fence(accs)
+    tel.count("combine_bytes", nbytes, **labels)
+    return accs
+
+
+def gather_slots(mesh, *per_slot: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Per-slot f32 tensors of this process's leaves -> the whole tier's
+    ``(B,)`` in leaf order (ranks hold contiguous leaf blocks in rank
+    order); the tensors themselves without a process group."""
+    flat = tuple(t.reshape(-1).to(torch.float32) for t in per_slot)
+    if mesh is None or mesh.group is None:
+        return flat
+    from repro_torch.launch import dist
+    return tuple(dist.all_gather_cat(torch.stack(flat), mesh.group, dim=1))
+
+
+def _rank_span(tel, mesh, name: str, **labels):
+    """A span of a rank's flush stage, under a process group only: the
+    one-process tier keeps the reference's span set (which the
+    observability twin prints)."""
+    if mesh is None or mesh.group is None:
+        return tele._NULL_SPAN
+    return tel.span(name, **labels)
+
+
+def _local_leaves(num_leaves: int, mesh, device) -> range:
+    """This process's leaves; without a mesh, ``device`` must resolve (the
+    GPU unless told otherwise), as for every entry point."""
+    if mesh is None:
+        _device.resolve(device)
+    else:
+        leaves_per_device(num_leaves, mesh)  # validates divisibility
+    return leaf_range(num_leaves, mesh)
+
+
+def _buffer_noise(rng, B: int, spec, plan, w_full, rows: slice, device):
+    """Rows ``rows`` of the batched flush's device noise, scaled by each
+    row's weight (the global ``(B, size)`` draws), or None."""
+    if spec.dev_noise <= 0.0:
+        return None
+    noise, _ = agg.plan_buffer_noise_and_uniforms(
+        rng, B, spec._replace(use_secure_agg=False), plan, device)
+    return tuple((n * (spec.dev_noise * w_full)[:, None])[rows]
+                 for n in noise)
+
+
+# ---------------------------------------------------------------------------
+# One global session (two_level=False) over the leaves
+# ---------------------------------------------------------------------------
+def build_sharded_masked_step(params, fl_cfg, *, num_leaves: int,
+                              leaf_buffer: int, recover: bool = True,
+                              masked: bool = True, mesh=None,
+                              device=None, telemetry=None):
+    """The flush of the STREAMED engines (off / client / tee_stream) over
+    ONE GLOBAL mask session: ``step(params, opt_state, mbufs, present,
+    weights, staleness, norms, clips, session_key, rng, ops=None)``.
+
+    ``mbufs``: per chunk the ``(n, leaf_buffer, padded)`` int32 rows of
+    this process's ``n`` leaves (:func:`launch.mesh.leaf_range`: every leaf
+    without a process group); ``weights``/``staleness``/``norms``/``clips``
+    those leaves' per-slot values; ``present`` the whole session's ``(B,)``
+    flags, replicated.  Each process gates and sums its own slots and, under
+    ``recover`` + ``masked``, sweeps its shard of each chunk's edge list
+    (:func:`_partition_edges`; an edge's endpoints may live on different
+    ranks, the sweep needs only the replicated flags); :func:`combine` adds
+    the partials across ranks; every rank then decodes, normalises, draws
+    the central noise once and applies the server optimizer, so every rank
+    holds the same new params.  Bit-identical to
+    ``async_fl.build_masked_async_buffer_step`` at ``buffer_size = B``.
     """
-    _device.resolve(device)
     L, Bl = num_leaves, leaf_buffer
     B = L * Bl
     spec = agg.make_spec(fl_cfg, B)
@@ -190,6 +287,142 @@ def build_two_level_masked_step(params, fl_cfg, *, num_leaves: int,
     server = build_server_opt(fl_cfg)
     plan = agg.plan_for(params, fl_cfg)
     wire = agg.plan_wire_chunks(spec, plan)
+    leaves = _local_leaves(L, mesh, device)
+    rank, W = _world(mesh)
+    rows = slice(leaves.start * Bl, leaves.stop * Bl)
+    tel = telemetry if telemetry is not None else tele.get_default()
+    labels = dict(engine="tier", topology="flat")
+
+    def step(params, opt_state, mbufs, present, weights, staleness, norms,
+             clips, session_key, rng, ops=None):
+        bufs = _as_chunks(mbufs)
+        dev = bufs[0].device
+        if ops is None:
+            ops = agg.plan_operators(spec, plan, session_key, device=dev)
+        pres, pres_t = _present_tensor(present, B, dev)
+        gate = [p == 1 for p in pres[rows]]
+        ckeys = plan.session_keys(session_key)
+        accs = []
+        with _rank_span(tel, mesh, "leaf_partials", **labels) as sp:
+            for c, (wc, buf) in enumerate(zip(wire, bufs)):
+                flat = buf.reshape(-1, buf.shape[-1])
+                if not recover:  # complete session: masks cancel
+                    accs.append(agg.sum_rows(flat))
+                    continue
+                acc = agg.sum_rows(flat, gate)
+                if masked:
+                    lo, hi, ew = _partition_edges(
+                        agg.make_mask_session(spec, ckeys[c]), W)
+                    per = len(lo) // W
+                    mine = slice(rank * per, (rank + 1) * per)
+                    agg.add_mod32_(acc, _pad_to(sa.recovery_sweep(
+                        (wc.size,), pres, lo[mine], hi[mine], ckeys[c],
+                        ew[mine], device=dev), wc.padded))
+                accs.append(acc)
+            sp.fence(accs)
+        accs = combine(accs, mesh, tel, **labels)
+        wts, stal, nrm, clp = gather_slots(mesh, weights, staleness, norms,
+                                            clips)
+        return _finalize_root(params, opt_state, accs, wts * pres_t, nrm,
+                              clp, stal, pres_t, spec, plan, server, rng,
+                              ops=ops)
+
+    return step
+
+
+def build_sharded_buffer_step(params, fl_cfg, *, num_leaves: int,
+                              leaf_buffer: int,
+                              staleness_mode: str = "polynomial",
+                              staleness_exponent: float = 0.5,
+                              mask_mode: str = "off", mesh=None,
+                              device=None, telemetry=None):
+    """The BATCHED engine (raw f32 rows; "off" or "tee") over ONE GLOBAL
+    mask session: ``step(params, opt_state, bufs, staleness, valid, rng)``
+    over per-chunk ``(n, leaf_buffer, padded)`` f32 rows of this process's
+    leaves and their per-slot staleness and valid flags.
+
+    Each process clips, weights, [noises,] encodes [and masks] its rows
+    (``aggregation.encode_plan_rows``: K2 per chunk, under the GLOBAL
+    session viewed at ``slot_offset`` = its first slot), :func:`combine`
+    adds the partials across ranks, and every rank decodes.  The uniforms
+    and the device noise are the global ``(B, padded)`` draws taken at the
+    process's rows, so the step is bit-identical to the single-host
+    ``async_fl.build_async_buffer_step`` at ``buffer_size = B``.
+    """
+    if mask_mode not in ("off", "tee"):
+        raise ValueError(f"mask_mode {mask_mode!r}: expected 'off' or 'tee'")
+    L, Bl = num_leaves, leaf_buffer
+    B = L * Bl
+    spec = agg.make_spec(fl_cfg, B)
+    _require_field(spec)
+    _require_identity(spec)
+    server = build_server_opt(fl_cfg)
+    plan = agg.plan_for(params, fl_cfg)
+    leaves = _local_leaves(L, mesh, device)
+    rows = slice(leaves.start * Bl, leaves.stop * Bl)
+    is_masked = mask_mode == "tee"
+    tel = telemetry if telemetry is not None else tele.get_default()
+    labels = dict(engine="tier", topology="flat")
+
+    def step(params, opt_state, bufs, staleness, valid, rng):
+        bufs = _as_chunks(bufs)
+        rng = prf.key_words(rng)
+        dev = bufs[0].device
+        stal, vld = gather_slots(mesh, staleness, valid)
+        w_full = staleness_weight(stal, staleness_mode, staleness_exponent,
+                                  device=dev) * vld
+        noise = _buffer_noise(rng, B, spec, plan, w_full, rows, dev)
+        sessions = (agg.plan_sessions(spec, plan, prf.fold_in(rng, 0x7EE),
+                                      slot_offset=rows.start)
+                    if is_masked else None)
+        with _rank_span(tel, mesh, "leaf_partials", **labels) as sp:
+            accs, nrm, clipped = agg.encode_plan_rows(
+                tuple(b.reshape(-1, b.shape[-1]) for b in bufs),
+                w_full[rows], _row_uniforms(rng, B, rows, plan, dev), noise,
+                spec, plan, sessions=sessions)
+            sp.fence(accs)
+        accs = combine(accs, mesh, tel, **labels)
+        nrm, clipped = gather_slots(mesh, nrm, clipped)
+        return _finalize_root(params, opt_state, accs, w_full, nrm, clipped,
+                              stal, vld, spec, plan, server, rng)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# The session tree (two_level=True): leaf sessions -> root session
+# ---------------------------------------------------------------------------
+def build_two_level_masked_step(params, fl_cfg, *, num_leaves: int,
+                                leaf_buffer: int, recover: bool = True,
+                                masked: bool = True, mesh=None,
+                                device=None, telemetry=None):
+    """The session-tree flush of the STREAMED engines (off / client /
+    tee_stream): ``step(params, opt_state, mbufs, present, weights,
+    staleness, norms, clips, session_key, rng, ops=None)`` over per-chunk
+    ``(n, leaf_buffer, padded)`` int32 rows of this process's ``n`` leaves
+    (all of them without a process group), masked under per-leaf sessions
+    (:func:`leaf_session`), with those leaves' per-slot values and the
+    whole session's ``(B,)`` present flags, replicated.
+
+    Leaf tier: the gated modular sum of the leaf's present slots + the
+    leaf's OWN recovery sweep (its local edges, its local presence) + its
+    root-session mask while the leaf is alive.  Root tier: the wraparound
+    sum of the partials (:func:`combine` across ranks) + the root recovery
+    of DEAD leaves (one ``num_leaves``-slot sweep), then decode / normalize
+    / central noise / server optimizer on every rank.  Bit-identical to the
+    single-host engines at ``buffer_size = B``, and to the flat survivor
+    aggregate under client and whole-leaf dropout.
+    """
+    L, Bl = num_leaves, leaf_buffer
+    B = L * Bl
+    spec = agg.make_spec(fl_cfg, B)
+    _require_field(spec)
+    server = build_server_opt(fl_cfg)
+    plan = agg.plan_for(params, fl_cfg)
+    wire = agg.plan_wire_chunks(spec, plan)
+    leaves = _local_leaves(L, mesh, device)
+    tel = telemetry if telemetry is not None else tele.get_default()
+    labels = dict(engine="tier", topology="tree")
 
     def step(params, opt_state, mbufs, present, weights, staleness, norms,
              clips, session_key, rng, ops=None):
@@ -203,36 +436,41 @@ def build_two_level_masked_step(params, fl_cfg, *, num_leaves: int,
         ckeys = plan.session_keys(session_key)
         sweep = recover and masked
         accs = []
-        for c, (wc, buf) in enumerate(zip(wire, bufs)):
-            rsess = root_session(spec, ckeys[c], L) if sweep else None
-            acc = None
-            for leaf in range(L):
-                if not recover:  # complete session: local masks cancel
-                    acc = _root_add(acc, agg.sum_rows(buf[leaf]))
-                    continue
-                part = agg.sum_rows(buf[leaf],
-                                    [p == 1 for p in leaf_pres[leaf]])
-                if masked:
-                    # fault isolation: only this leaf's edges, gated by
-                    # only this leaf's presence
-                    lsess = leaf_session(spec, ckeys[c], leaf, Bl)
-                    agg.add_mod32_(part, _pad_to(
-                        lsess.recovery((wc.size,), leaf_pres[leaf],
-                                       device=dev), wc.padded))
-                    if alive[leaf]:
+        with _rank_span(tel, mesh, "leaf_partials", **labels) as sp:
+            for c, (wc, buf) in enumerate(zip(wire, bufs)):
+                rsess = root_session(spec, ckeys[c], L) if sweep else None
+                acc = None
+                for j, leaf in enumerate(leaves):
+                    if not recover:  # complete session: masks cancel
+                        acc = _root_add(acc, agg.sum_rows(buf[j]))
+                        continue
+                    part = agg.sum_rows(buf[j],
+                                        [p == 1 for p in leaf_pres[leaf]])
+                    if masked:
+                        # fault isolation: only this leaf's edges, gated
+                        # by only this leaf's presence
+                        lsess = leaf_session(spec, ckeys[c], leaf, Bl)
                         agg.add_mod32_(part, _pad_to(
-                            rsess.mask((wc.size,), leaf, device=dev),
-                            wc.padded))
-                acc = _root_add(acc, part)
-            if sweep:  # a dead leaf is one absent root slot
-                agg.add_mod32_(acc, _pad_to(
-                    rsess.recovery((wc.size,), alive, device=dev),
-                    wc.padded))
-            accs.append(acc)
-        w = weights.reshape(B) * pres_t
-        return _finalize_root(params, opt_state, accs, w, norms.reshape(B),
-                              clips.reshape(B), staleness.reshape(B), pres_t,
-                              spec, plan, server, rng, ops=ops)
+                            lsess.recovery((wc.size,), leaf_pres[leaf],
+                                           device=dev), wc.padded))
+                        if alive[leaf]:
+                            agg.add_mod32_(part, _pad_to(
+                                rsess.mask((wc.size,), leaf, device=dev),
+                                wc.padded))
+                    acc = _root_add(acc, part)
+                accs.append(acc)
+            sp.fence(accs)
+        accs = combine(accs, mesh, tel, **labels)
+        if sweep:  # a dead leaf is one absent root slot
+            for c, wc in enumerate(wire):
+                agg.add_mod32_(accs[c], _pad_to(
+                    root_session(spec, ckeys[c], L).recovery(
+                        (wc.size,), alive, device=dev), wc.padded))
+        wts, stal, nrm, clp = gather_slots(mesh, weights, staleness, norms,
+                                            clips)
+        return _finalize_root(params, opt_state, accs, wts * pres_t, nrm,
+                              clp, stal, pres_t, spec, plan, server, rng,
+                              ops=ops)
 
     return step
 
@@ -241,18 +479,19 @@ def build_two_level_buffer_step(params, fl_cfg, *, num_leaves: int,
                                 leaf_buffer: int,
                                 staleness_mode: str = "polynomial",
                                 staleness_exponent: float = 0.5,
-                                device=None):
+                                mesh=None, device=None,
+                                telemetry=None):
     """The session-tree BATCHED "tee" engine: ``step(params, opt_state,
-    bufs, staleness, valid, rng)`` over per-chunk ``(num_leaves,
-    leaf_buffer, padded)`` f32 buffers.  Each leaf clips, weights, [noises,]
-    encodes and masks its own rows (``aggregation.encode_plan_rows``, K2
-    per chunk) under its OWN local session (``num_slots = leaf_buffer``,
-    ``slot_offset = 0``), so K2's PRF lane generates only the leaf's pair
-    streams and each leaf's masks cancel in its own partial; the root adds
-    the partials mod 2^32.  The device noise and the uniforms are the
-    global ``(B, padded)`` draws, taken per leaf row range.  Bit-identical
-    to the single-host batched "tee" step."""
-    _device.resolve(device)
+    bufs, staleness, valid, rng)`` over per-chunk ``(n, leaf_buffer,
+    padded)`` f32 rows of this process's leaves.  Each leaf clips, weights,
+    [noises,] encodes and masks its own rows (``aggregation.
+    encode_plan_rows``, K2 per chunk) under its OWN local session
+    (``num_slots = leaf_buffer``, ``slot_offset = 0``), so K2's PRF lane
+    generates only the leaf's pair streams and each leaf's masks cancel in
+    its own partial; :func:`combine` adds the partials mod 2^32 across
+    ranks.  The device noise and the uniforms are the global ``(B,
+    padded)`` draws, taken per leaf row range.  Bit-identical to the
+    single-host batched "tee" step."""
     L, Bl = num_leaves, leaf_buffer
     B = L * Bl
     spec = agg.make_spec(fl_cfg, B)
@@ -260,40 +499,41 @@ def build_two_level_buffer_step(params, fl_cfg, *, num_leaves: int,
     _require_identity(spec)
     server = build_server_opt(fl_cfg)
     plan = agg.plan_for(params, fl_cfg)
+    leaves = _local_leaves(L, mesh, device)
+    tel = telemetry if telemetry is not None else tele.get_default()
+    labels = dict(engine="tier", topology="tree")
 
     def step(params, opt_state, bufs, staleness, valid, rng):
         bufs = _as_chunks(bufs)
         rng = prf.key_words(rng)
-        w_full = staleness_weight(staleness.reshape(B), staleness_mode,
-                                  staleness_exponent,
-                                  device=valid.device) * valid.reshape(B)
-        ckeys = plan.session_keys(prf.fold_in(rng, 0x7EE))
         dev = bufs[0].device
-        noise = None
-        if spec.dev_noise > 0.0:
-            # the global (B, size) draws; no uniforms here (taken per leaf)
-            noise, _ = agg.plan_buffer_noise_and_uniforms(
-                rng, B, spec._replace(use_secure_agg=False), plan, dev)
-            noise = tuple(n * (spec.dev_noise * w_full)[:, None]
-                          for n in noise)
+        stal, vld = gather_slots(mesh, staleness, valid)
+        w_full = staleness_weight(stal, staleness_mode, staleness_exponent,
+                                  device=dev) * vld
+        ckeys = plan.session_keys(prf.fold_in(rng, 0x7EE))
+        mine = slice(leaves.start * Bl, leaves.stop * Bl)
+        noise = _buffer_noise(rng, B, spec, plan, w_full, mine, dev)
         accs = [None] * plan.num_chunks
         nrms, clips = [], []
-        for leaf in range(L):
-            rows = slice(leaf * Bl, (leaf + 1) * Bl)
-            u_l = _leaf_uniforms(rng, B, leaf, Bl, plan, dev)
-            n_l = None if noise is None else tuple(n[rows] for n in noise)
-            a, nrm, cl = agg.encode_plan_rows(
-                tuple(b[leaf] for b in bufs), w_full[rows], u_l, n_l, spec,
-                plan, sessions=tuple(leaf_session(spec, k, leaf, Bl)
-                                     for k in ckeys))
-            del u_l, n_l
-            accs = [_root_add(acc, p) for acc, p in zip(accs, a)]
-            nrms.append(nrm)
-            clips.append(cl)
-        return _finalize_root(params, opt_state, tuple(accs), w_full,
-                              torch.cat(nrms), torch.cat(clips),
-                              staleness.reshape(B), valid.reshape(B), spec,
-                              plan, server, rng)
+        with _rank_span(tel, mesh, "leaf_partials", **labels) as sp:
+            for j, leaf in enumerate(leaves):
+                rows = slice(leaf * Bl, (leaf + 1) * Bl)
+                u_l = _row_uniforms(rng, B, rows, plan, dev)
+                n_l = (None if noise is None
+                       else tuple(n[j * Bl:(j + 1) * Bl] for n in noise))
+                a, nrm, cl = agg.encode_plan_rows(
+                    tuple(b[j] for b in bufs), w_full[rows], u_l, n_l, spec,
+                    plan, sessions=tuple(leaf_session(spec, k, leaf, Bl)
+                                         for k in ckeys))
+                del u_l, n_l
+                accs = [_root_add(acc, p) for acc, p in zip(accs, a)]
+                nrms.append(nrm)
+                clips.append(cl)
+            sp.fence(accs)
+        accs = combine(accs, mesh, tel, **labels)
+        nrm, clipped = gather_slots(mesh, torch.cat(nrms), torch.cat(clips))
+        return _finalize_root(params, opt_state, tuple(accs), w_full, nrm,
+                              clipped, stal, vld, spec, plan, server, rng)
 
     return step
 
@@ -302,12 +542,24 @@ class ShardedAsyncServer:
     """Buffered asynchronous aggregation over the leaf/root tier (see the
     JAX class for the protocol).
 
-    State: per-chunk ``(num_leaves, leaf_buffer, padded)`` buffers (int32
-    rows in the streamed modes, raw f32 rows in "tee") and
-    ``(num_leaves, leaf_buffer)`` per-slot scalars on ``device`` (default
-    the GPU), updated in place.  ``num_leaves``/``leaf_buffer``/
-    ``two_level`` default from ``FLConfig``; every leaf lives on the one
-    device.
+    State: per-chunk ``(n, leaf_buffer, padded)`` buffers (int32 rows in
+    the streamed modes, raw f32 rows in "tee") and ``(n, leaf_buffer)``
+    per-slot scalars of the ``n`` leaves this process hosts, updated in
+    place.  ``num_leaves``/``leaf_buffer``/``two_level`` default from
+    ``FLConfig``.
+
+    Placement (``mesh``): None, or a mesh without a process group — every
+    leaf on one device (``device``, default the GPU, or the mesh's), and
+    the flat topology flushes through the flat engine.  A
+    :class:`launch.mesh.LeafMesh` backed by a process group — SPMD, as the
+    JAX tier's ``shard_map``: every rank runs the same calls with
+    the same inputs and keeps the same host metadata (slot allocation,
+    presence, versions, quorum), but holds, encodes and sums only its own
+    contiguous block of leaves (:func:`launch.mesh.leaf_range`) on its own
+    device; the flush combines the ranks' partials (:func:`combine`) and
+    every rank ends with the same params.  In ``client`` mode
+    :meth:`encode_push` then encodes only the rows routed to this rank's
+    leaves (the others come back with ``row=None``).
 
     Session topology (``two_level``): False — ONE mask session over all
     ``num_leaves * leaf_buffer`` global slots (slot ``s`` lives on leaf
@@ -330,7 +582,8 @@ class ShardedAsyncServer:
                  staleness_exponent: float = 0.5,
                  staleness_mode: str = "polynomial",
                  mask_mode: str = "off", session_seed: int = 0x5A5E,
-                 two_level: Optional[bool] = None, strict: bool = True,
+                 two_level: Optional[bool] = None, mesh=None,
+                 strict: bool = True,
                  telemetry: Optional["tele.Telemetry"] = None,
                  device=None):
         if mask_mode not in ("off", "tee", "tee_stream", "client"):
@@ -343,12 +596,25 @@ class ShardedAsyncServer:
                 "or set FLConfig.num_leaves/leaf_buffer")
         if two_level is None:
             two_level = fl_cfg.two_level
-        self.device = dev = _device.resolve(device)
+        if mesh is None:
+            dev = _device.resolve(device)
+        else:
+            dev = mesh.device
+            if device is not None and torch.device(device) != dev:
+                raise ValueError(f"device={device!r} but this rank's mesh "
+                                 f"position is on {dev}")
+            if mesh.group is None:  # one process hosts every leaf
+                mesh = None
+        self.device = dev
+        self.mesh = mesh
         self.params = _as_device_tree(params, dev)
         self.fl_cfg = fl_cfg
         self.num_leaves = L = num_leaves
         self.leaf_buffer = Bl = leaf_buffer
         self.buffer_size = B = L * Bl
+        # the leaves this process hosts (every leaf without a process group)
+        self._leaves = _local_leaves(L, mesh, dev)
+        nl = len(self._leaves)
         self.staleness_exponent = staleness_exponent
         self.staleness_mode = staleness_mode
         self.mask_mode = mask_mode
@@ -388,24 +654,29 @@ class ShardedAsyncServer:
         self._enclave_base = prf.PRNGKey(0xE7C)
 
         def zslot():
-            return torch.zeros((L, Bl), dtype=torch.float32, device=dev)
+            return torch.zeros((nl, Bl), dtype=torch.float32, device=dev)
 
         self._stal = zslot()
         # per-GLOBAL-slot presence (host metadata)
         self._present = [False] * B
         self._streaming = mask_mode != "tee"
         self._masked = mask_mode not in ("off", "tee")
+        tier = dict(num_leaves=L, leaf_buffer=Bl, mesh=mesh, device=dev,
+                    telemetry=self.telemetry)
         if self._streaming:
             self._bufs = tuple(
-                torch.zeros((L, Bl, wc.padded), dtype=torch.int32,
+                torch.zeros((nl, Bl, wc.padded), dtype=torch.int32,
                             device=dev) for wc in self._wire)
             self._wts, self._norms, self._clips = zslot(), zslot(), zslot()
             if two_level:
                 self._step, self._flush_step = (build_two_level_masked_step(
-                    self.params, fl_cfg, num_leaves=L, leaf_buffer=Bl,
-                    recover=r, masked=self._masked, device=dev)
-                    for r in (False, True))
-            else:  # one global session: the flat engine's flush
+                    self.params, fl_cfg, recover=r, masked=self._masked,
+                    **tier) for r in (False, True))
+            elif mesh is not None:
+                self._step, self._flush_step = (build_sharded_masked_step(
+                    self.params, fl_cfg, recover=r, masked=self._masked,
+                    **tier) for r in (False, True))
+            else:  # one global session on one device: the flat engine
                 self._step, self._flush_step = (
                     build_masked_async_buffer_step(
                         self.params, fl_cfg, buffer_size=B, recover=r,
@@ -413,20 +684,21 @@ class ShardedAsyncServer:
                     for r in (False, True))
         else:  # "tee": raw rows, the batched in-enclave mask lane at flush
             self._bufs = tuple(
-                torch.zeros((L, Bl, ck.padded), dtype=torch.float32,
+                torch.zeros((nl, Bl, ck.padded), dtype=torch.float32,
                             device=dev) for ck in plan.chunks)
             self._valid = zslot()
+            stal_kw = dict(staleness_mode=staleness_mode,
+                           staleness_exponent=staleness_exponent)
             if two_level:
                 self._step = build_two_level_buffer_step(
-                    self.params, fl_cfg, num_leaves=L, leaf_buffer=Bl,
-                    staleness_mode=staleness_mode,
-                    staleness_exponent=staleness_exponent, device=dev)
+                    self.params, fl_cfg, **stal_kw, **tier)
+            elif mesh is not None:
+                self._step = build_sharded_buffer_step(
+                    self.params, fl_cfg, mask_mode="tee", **stal_kw, **tier)
             else:
                 self._step = build_async_buffer_step(
-                    self.params, fl_cfg, buffer_size=B,
-                    staleness_mode=staleness_mode,
-                    staleness_exponent=staleness_exponent, mask_mode="tee",
-                    device=dev)
+                    self.params, fl_cfg, buffer_size=B, mask_mode="tee",
+                    device=dev, **stal_kw)
 
     # -- plan / buffer views ------------------------------------------------
     @property
@@ -517,8 +789,9 @@ class ShardedAsyncServer:
         self.fault_metrics["lost_contributions"] += len(lost)
         self.telemetry.gauge("buffered_contributions", self._fill,
                              **self._tl)
-        if not self._streaming:  # "tee" gates rows by the valid plane
-            self._valid[leaf] = 0.0
+        if not self._streaming and leaf in self._leaves:
+            # "tee" gates rows by the valid plane
+            self._valid[leaf - self._leaves.start] = 0.0
         return lost
 
     def _take_slots(self, k: int) -> List[int]:
@@ -565,11 +838,16 @@ class ShardedAsyncServer:
         return per
 
     def _routed(self, slots, stals):
-        """(leaf, batch position, local slot, staleness) of each arrival,
-        leaf by leaf (the destination-sharded order)."""
-        for leaf, arrivals in enumerate(self._route_by_leaf(slots, stals)):
-            for pos, lslot, st in arrivals:
+        """(leaf, batch position, local slot, staleness) of each arrival on
+        this process's leaves, leaf by leaf (the destination-sharded
+        order)."""
+        per = self._route_by_leaf(slots, stals)
+        for leaf in self._leaves:
+            for pos, lslot, st in per[leaf]:
                 yield leaf, pos, lslot, st
+
+    def _is_local(self, gslot: int) -> bool:
+        return gslot // self.leaf_buffer in self._leaves
 
     # -- the per-row encode -------------------------------------------------
     def _encode_row(self, delta, gslot: int, staleness: float):
@@ -594,12 +872,13 @@ class ShardedAsyncServer:
 
     def _write(self, leaf: int, lslot: int, rows, staleness, w, nrm,
                clipped) -> None:
+        j = leaf - self._leaves.start
         for b, r in zip(self._bufs, rows):
-            b[leaf, lslot] = r
-        self._stal[leaf, lslot] = float(staleness)
-        self._wts[leaf, lslot] = w
-        self._norms[leaf, lslot] = nrm
-        self._clips[leaf, lslot] = clipped
+            b[j, lslot] = r
+        self._stal[j, lslot] = float(staleness)
+        self._wts[j, lslot] = w
+        self._norms[j, lslot] = nrm
+        self._clips[j, lslot] = clipped
 
     def _upload_lane(self) -> str:
         return "packed" if self._spec.compression.identity else "compressed"
@@ -680,18 +959,20 @@ class ShardedAsyncServer:
         out, nbytes = [], 0
         with self._span("encode_push", k=K) as sp:
             for i, s in enumerate(slots):
-                rows, w, nrm, clipped = self._encode_row(
-                    T.tree_map(lambda x: x[i], deltas), int(s),
-                    float(stals[i]))
-                rows = tuple(sess.reduce(r)
-                             for sess, r in zip(wire_sessions, rows))
-                nbytes += 4 * sum(int(r.numel()) for r in rows)
+                row = w = nrm = clipped = None
+                if self._is_local(int(s)):  # another rank's clients: not here
+                    rows, w, nrm, clipped = self._encode_row(
+                        T.tree_map(lambda x: x[i], deltas), int(s),
+                        float(stals[i]))
+                    rows = tuple(sess.reduce(r)
+                                 for sess, r in zip(wire_sessions, rows))
+                    nbytes += 4 * sum(int(r.numel()) for r in rows)
+                    row = rows[0] if len(rows) == 1 else rows
                 out.append(ClientPush(
-                    rows[0] if len(rows) == 1 else rows, w, nrm, clipped,
-                    float(stals[i]), self.version, int(s),
-                    self._spec.field_modulus, self._new_token(),
+                    row, w, nrm, clipped, float(stals[i]), self.version,
+                    int(s), self._spec.field_modulus, self._new_token(),
                     self._spec.compression))
-            sp.fence([cp.row for cp in out])
+            sp.fence([cp.row for cp in out if cp.row is not None])
         self.telemetry.count("upload_bytes", nbytes,
                              lane=self._upload_lane(), **self._tl)
         return out
@@ -827,11 +1108,13 @@ class ShardedAsyncServer:
         if self._enclave_bits:
             # the tier ingests the client-side quantization's reconstruction;
             # the packed words are what crossed the wire (one key per row,
-            # split from the batch's key)
+            # split from the batch's key; rows of this process's leaves)
             ekey = prf.fold_in(self._enclave_base, self._enclave_seq)
             self._enclave_seq += 1
             nbytes = 0
             for i, k in enumerate(prf.split(ekey, K)):
+                if not self._is_local(slots[i]):
+                    continue
                 rows_in[i], words = enclave_wire(
                     self._plan, rows_in[i], k, self._enclave_bits,
                     float(self.fl_cfg.secure_agg_range), self.device)
@@ -843,10 +1126,11 @@ class ShardedAsyncServer:
                 for leaf, pos, lslot, st in self._routed(slots, stals):
                     rows = self._plan.chunk_arrays(
                         _as_device_tree(rows_in[pos], self.device), pad=True)
+                    j = leaf - self._leaves.start
                     for b, r in zip(self._bufs, rows):
-                        b[leaf, lslot] = r
-                    self._stal[leaf, lslot] = st
-                    self._valid[leaf, lslot] = 1.0
+                        b[j, lslot] = r
+                    self._stal[j, lslot] = st
+                    self._valid[j, lslot] = 1.0
                 sp.fence(self._bufs)
             self._mark(slots, rng)
             return
@@ -893,21 +1177,22 @@ class ShardedAsyncServer:
         rng = prf.key_words(rng)
         B = self.buffer_size
         recovery = self._fill < B
-        # the flat topology's step is the flat engine's: (B, padded) rows
-        bufs = (self._bufs if self.two_level
+        # in one process the flat topology's step is the flat engine's:
+        # (B, padded) rows
+        bufs = (self._bufs if self.two_level or self.mesh is not None
                 else tuple(b.view(B, -1) for b in self._bufs))
         with self._span("decode", recovery=recovery, fill=self._fill) as sp:
             if self._streaming:
                 step = self._flush_step if recovery else self._step
                 self.params, self._opt_state, self.last_metrics = step(
                     self.params, self._opt_state, bufs, list(self._present),
-                    self._wts.view(B), self._stal.view(B),
-                    self._norms.view(B), self._clips.view(B),
+                    self._wts.view(-1), self._stal.view(-1),
+                    self._norms.view(-1), self._clips.view(-1),
                     self._session_key(), rng, ops=self._operators())
             else:
                 self.params, self._opt_state, self.last_metrics = self._step(
-                    self.params, self._opt_state, bufs, self._stal.view(B),
-                    self._valid.view(B), rng)
+                    self.params, self._opt_state, bufs, self._stal.view(-1),
+                    self._valid.view(-1), rng)
                 self._valid.zero_()
             sp.fence(self.params)
         self._present = [False] * self.buffer_size

@@ -53,10 +53,12 @@ from repro_torch import device as _device
 from repro_torch import tree as T
 from repro_torch.core import telemetry as tele
 from repro_torch.core.fl import aggregation as agg
+from repro_torch.core.fl import hierarchy
 from repro_torch.core.fl.server_opt import build_server_opt
 from repro_torch.kernels import dp_clip as kdp
 from repro_torch.kernels import prf
 from repro_torch.kernels import secure_agg as ksa
+from repro_torch.launch.mesh import leaf_range, leaves_per_device
 
 SESSION_TAG = 0x5E55
 TEE_NOISE_TAG = 0xDEE
@@ -351,7 +353,7 @@ def _instrument_step(round_step: Callable, tel: "tele.Telemetry",
 
 
 def build_sharded_round_step(loss_fn: Callable, fl_cfg, *, cohort_size: int,
-                             num_leaves: int,
+                             num_leaves: int, mesh=None,
                              telemetry: Optional["tele.Telemetry"] = None,
                              device=None) -> Callable:
     """A synchronous round over the aggregation tier's leaves.
@@ -368,10 +370,23 @@ def build_sharded_round_step(loss_fn: Callable, fl_cfg, *, cohort_size: int,
     ``split(rng, cohort_size)[c]`` and encodes under it directly, as the
     fully-vmapped reference does, so the round equals
     ``build_round_step(clients_per_chunk=cohort_size)`` given the same
-    deltas.  The leaves run one after another on ``device`` (the GPU by
-    default).
+    deltas.
+
+    Placement: without ``mesh`` (or with a mesh without a process group)
+    the leaves run one after another on ``device`` (the GPU by default).
+    With a ``launch.mesh.LeafMesh`` over a process group every rank runs
+    the same call on the same batch and key, trains and encodes only its
+    own leaves' clients on its device, and the ranks' partials meet in
+    ``hierarchy.combine``; the per-leaf metric sums are gathered and added
+    in leaf order, so every rank returns the one-process round's state
+    and metrics bit for bit.
     """
-    dev = _device.resolve(device)
+    if mesh is None:
+        dev = _device.resolve(device)
+    else:
+        dev = mesh.device
+        leaves_per_device(num_leaves, mesh)  # validates divisibility
+    leaves = leaf_range(num_leaves, mesh)
     tel = telemetry if telemetry is not None else tele.get_default()
     with tel.span("round.setup", kind="sharded", cohort=cohort_size,
                   leaves=num_leaves):
@@ -404,7 +419,7 @@ def build_sharded_round_step(loss_fn: Callable, fl_cfg, *, cohort_size: int,
         paths, pleaves = T.flatten(params)
         acc = [None] * len(pleaves)
         stats = []
-        for leaf in range(num_leaves):
+        for leaf in leaves:
             idx = list(range(leaf * m, (leaf + 1) * m))
             crngs = [rngs[c] for c in idx]
             w = weights[idx]
@@ -419,10 +434,14 @@ def build_sharded_round_step(loss_fn: Callable, fl_cfg, *, cohort_size: int,
                 acc = [p if a is None else agg.add_mod32_(a, p)
                        for a, p in zip(acc, part)]
                 sp.fence(acc)
-            stats.append(((losses * w).sum(), (nrm * w).sum(),
-                          (was_clipped * w).sum(), w.sum()))
+            stats.append(torch.stack([(losses * w).sum(), (nrm * w).sum(),
+                                      (was_clipped * w).sum(), w.sum()]))
+        acc = hierarchy.combine(acc, mesh, tel, kind="sharded")
+        # every leaf's sums, added in leaf order whatever rank holds it
+        cols = hierarchy.gather_slots(mesh, *torch.stack(stats).T)
         loss_s, norm_s, clip_s, w_s = (
-            functools.reduce(lambda a, b: a + b, col) for col in zip(*stats))
+            functools.reduce(lambda a, b: a + b, col.unbind())
+            for col in cols)
         w_total = torch.clamp(w_s, min=1e-9)
         with span("round.decode") as sp:
             mean_delta = agg.finalize_aggregate(

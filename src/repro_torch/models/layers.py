@@ -163,7 +163,8 @@ def _grouped_out(probs, v):
 
 
 def attention(cfg, p, x, positions, *, causal: bool = True,
-              window: Optional[int] = None, return_kv: bool = False):
+              window: Optional[int] = None, kv_override=None,
+              cross: bool = False, return_kv: bool = False):
     """Training/prefill attention, chunked over queries (memory-safe).
 
     Where ``S`` is not a multiple of the chunk, the reference falls back to
@@ -172,10 +173,17 @@ def attention(cfg, p, x, positions, *, causal: bool = True,
     score tensor stays ``chunk x S`` (a 3104-token VLM sequence would
     otherwise hold a 20 GB one).
 
+    kv_override: (k, v, k_positions) — for cross attention over encoder
+    memory.  cross: no RoPE on the queries and no causal mask.
     return_kv: also return the (k, v) computed here (prefill cache fill).
     """
     B, S, _ = x.shape
-    q, k, v = _qkv(cfg, p, x, positions, cfg.pos_emb == "rope")
+    q, k, v = _qkv(cfg, p, x, positions,
+                   cfg.pos_emb == "rope" and not cross)
+    if kv_override is not None:
+        k, v, k_positions = kv_override
+    else:
+        k_positions = positions
     q = q * cfg.head_dim ** -0.5
 
     chunk = cfg.attn_q_chunk or ATTN_QUERY_CHUNK
@@ -183,10 +191,10 @@ def attention(cfg, p, x, positions, *, causal: bool = True,
     for c0 in range(0, S, chunk):
         qpos = positions[c0:c0 + chunk]
         scores = _grouped_scores(q[:, c0:c0 + chunk], k).float()
-        if causal:
-            mask = qpos[:, None] >= positions[None, :]
+        if causal and not cross:
+            mask = qpos[:, None] >= k_positions[None, :]
             if window is not None:
-                mask &= (qpos[:, None] - positions[None, :]) < window
+                mask &= (qpos[:, None] - k_positions[None, :]) < window
             scores.masked_fill_(~mask, _F32_MIN)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         del scores

@@ -81,11 +81,13 @@ def _causal_conv(xBC, w, b):
     return F.silu(out + b)
 
 
-def ssd_chunked(x, dt, A, B, C, chunk: int):
+def ssd_chunked(x, dt, A, B, C, chunk: int, unroll: bool = False):
     """SSD forward.  Shapes:
       x: (b, S, nh, hd)   dt: (b, S, nh)   A: (nh,) (negative)
       B, C: (b, S, g, ds) with g == 1 (grouped state dims)
     Returns y: (b, S, nh, hd) and final state (b, nh, hd, ds).
+    ``unroll`` is the reference's scan layout knob (how XLA lays out the
+    inter-chunk scan); it changes no value, and the loop here is eager.
     """
     b, S, nh, hd = x.shape
     g, ds = B.shape[2], B.shape[3]

@@ -26,6 +26,9 @@ from repro_torch.core.analytics import label_balance as lb
 from repro_torch.core.analytics import normalization as norm
 from repro_torch.kernels import bitagg as k9
 from repro_torch.kernels import prf
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 
 def _kw(k):

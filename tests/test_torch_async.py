@@ -28,6 +28,9 @@ from repro_torch import tree as T
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.fl import aggregation as agg
 from repro_torch.core.fl.async_fl import AsyncServer, staleness_weight
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 B = 3  # session size: 3 pairwise masks, one dropout recovers 2
 
@@ -300,6 +303,20 @@ def test_server_opt_and_dp_match_reference(kind):
         cfg = dict(noise_multiplier=1.3, clip_norm=0.7)
         assert dp.noise_stddev(FLConfig(**cfg), 8, pl) == jdp.noise_stddev(
             JFL(**cfg), 8, pl)
+
+
+def test_add_noise_takes_the_reference_keywords():
+    """F8: ``add_noise(update, rng=..., stddev=...)`` as in the reference,
+    bit-equal on a zero update (the sum then holds no FMA rounding)."""
+    from repro.core.fl import dp as jdp
+    from repro_torch.core.fl import dp
+    from repro_torch.kernels import prf
+    zeros = {"a": np.zeros((3, 5), np.float32), "b": np.zeros(7, np.float32)}
+    want = jdp.add_noise(_jx(zeros), rng=jax.random.PRNGKey(11), stddev=0.3)
+    got = dp.add_noise(convert.params_from_numpy(zeros),
+                       rng=prf.PRNGKey(11), stddev=0.3)
+    for a, b in zip(jax.tree.leaves(want), T.leaves(got)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
 @pytest.mark.parametrize("placement", ["device", "tee"])

@@ -26,6 +26,9 @@ from repro_torch.core.analytics import bitagg as fa
 from repro_torch.kernels import bitagg as k9
 from repro_torch.kernels import ops
 from repro_torch.kernels import prf
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 
 def _inputs(N, F, T, seed):

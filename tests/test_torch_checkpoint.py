@@ -29,6 +29,9 @@ import torch
 from repro.checkpoint import checkpoint as jck
 from repro_torch.checkpoint import checkpoint as tck
 from repro_torch.checkpoint import msgpack_codec as mp
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 

@@ -38,6 +38,9 @@ from repro_torch.core.fl import compression as comp
 from repro_torch.core.fl.async_fl import AsyncServer
 from repro_torch.kernels import prf
 from repro_torch.kernels import secure_agg as ksa
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 # the reference's compression test model: 2245 parameters, three chunks of
 # 645 / 700 / 900 at param_chunk_elems 1000 (sorted-key leaf order)

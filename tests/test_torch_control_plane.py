@@ -34,6 +34,9 @@ from repro_torch.core.signal_transformer import (
     SignalTransformer, TransformSpec, spec_with_normalization, validate_spec,
 )
 from repro_torch.data.feature_store import DeviceFeatureStore
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 
 def _pair(n, seed, **kw):

@@ -24,6 +24,9 @@ from repro_torch.kernels import prf
 from repro_torch.kernels import secure_agg as ksa
 from repro_torch.launch import serve
 from repro_torch.models.model import build_model
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 SCALE = 1.0e4 / 3.0
 UW = (77, 0xDEADBEEF)
@@ -419,3 +422,40 @@ def test_cuda_family_round_matches_the_cpu_round(cuda, arch):
     for a, b in zip(T.leaves(out["cpu"]["state"].params),
                     T.leaves(out["cuda"]["state"].params)):
         torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_gloo_world_of_two_matches_the_one_process_tier(cuda):
+    """Two gloo ranks sharing the card (each holds 2 of the 4 leaves,
+    gloo stages the combine through the host) end every run with
+    the one-process tier's params, bit for bit: a full session, then a
+    recovering flush after two dropouts and a dead leaf."""
+    import numpy as np
+
+    from repro_torch.launch import dist
+    from repro_torch.testing import (NumpySource, TierCase, run_tier_case,
+                                     tier_world)
+    rs = np.random.RandomState(5)
+    src = NumpySource({"a": np.zeros(700, np.float32),
+                       "b": np.zeros((3, 40), np.float32)},
+                      [{"a": (rs.randn(700) * 0.01).astype(np.float32),
+                        "b": (rs.randn(3, 40) * 0.01).astype(np.float32)}
+                       for _ in range(13)])
+    steps = (("push", tuple(range(8)), 0, tuple(range(8))),
+             ("push", (8, 9, 10), 1, (0, 4, 5)), ("dead", 2),
+             ("push", (11, 12), 1, (3, 7)), ("flush", 17))
+    fl = dict(clip_norm=1.0, param_chunk_elems=600)
+    cases = [TierCase("client-tree-16", "client", True, 4, 2,
+                      dict(fl, secure_agg_bits=16), steps),
+             TierCase("tee_stream-flat", "tee_stream", False, 4, 2,
+                      dict(fl, secure_agg_bits=32), steps),
+             TierCase("tee-flat", "tee", False, 4, 2,
+                      dict(fl, secure_agg_bits=32), steps)]
+    ranks = dist.run(tier_world, 2, [src], cases, device="cuda",
+                     backend="gloo")
+    for case in cases:
+        one = run_tier_case(case, src.build(cuda), device=cuda)
+        for r in ranks:
+            got = r[case.name]["params"]
+            assert all(torch.equal(a, b.cpu()) for a, b in zip(
+                T.leaves(got), T.leaves(one.params))), case.name

@@ -36,6 +36,9 @@ from repro.kernels import secure_agg as jksa
 from repro_torch.kernels import dp_clip as kdp
 from repro_torch.kernels import ops
 from repro_torch.kernels import secure_agg as ksa
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 RED = dict(rtol=1e-5, atol=0)
 SUM = dict(rtol=1e-6, atol=2e-6)

@@ -22,6 +22,9 @@ from repro_torch.configs import registry as treg
 from repro_torch.kernels import flash_decode as kfd
 from repro_torch.models import encdec as TE
 from repro_torch.models import layers as TL
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 LAYER = dict(rtol=1e-5, atol=1e-5)
 MODEL = dict(rtol=0, atol=1e-4)

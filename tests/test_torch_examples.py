@@ -18,9 +18,10 @@ on the same draws:
 - ``fl_llm_finetune``: 3 rounds at cohort 4, plain and ``--masked
   --chunk-elems 65536`` (9 chunks, one mask session each): the arch and
   plan lines equal, each round's loss and clip fraction and the final loss
-  line within a unit of the printed digit (the round's ~1e-5); the
-  reference's "the loss fell" assert is taken out of its copy (the twin
-  reports it); the twin's checkpoint restores in the reference;
+  line within a unit of the printed digit (the round's ~1e-5); both
+  examples' "the loss fell" asserts are taken out at 3 rounds, and the
+  twin's is held apart (it fails a run whose loss does not fall); the
+  twin's checkpoint restores in the reference;
 - ``observability_smoke`` is held in ``tests/test_torch_obs.py``.
 """
 import io
@@ -33,6 +34,9 @@ import pytest
 
 from repro_torch.examples import (async_vs_sync, fl_llm_finetune, quickstart,
                                    serve_on_device)
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -113,6 +117,8 @@ def test_fl_llm_finetune_twin_prints_the_reference_lines(extra, tmp_path,
     from repro_torch import tree as T
     argv = ["--rounds", "3", "--cohort", "4"] + extra
     session = {}
+    # at 3 rounds the loss need not fall: both examples' asserts are taken out
+    monkeypatch.setattr(fl_llm_finetune, "check_loss_fell", lambda _: None)
     got = _run_port(lambda a: fl_llm_finetune.main(a, session=session),
                     argv + ["--device", "cpu", "--checkpoint-dir",
                             str(tmp_path)])
@@ -130,11 +136,36 @@ def test_fl_llm_finetune_twin_prints_the_reference_lines(extra, tmp_path,
         assert g[2] == pytest.approx(w[2], abs=1.01e-2)
     g, w = _numbers(got[5]), _numbers(want[5])  # "loss a -> b (3 rounds"
     assert g[:3] == pytest.approx(w[:3], abs=1.01e-3)
-    assert got[6] in ("training improved the loss", "the loss did not fall "
-                      "(the reference example asserts it does)")
-    assert got[-1] == "checkpointed."
+    assert (got[6:], want[6:]) == (["checkpointed."], [])
     tree, man = jck.restore(str(tmp_path / "step_3"))
     assert man["step"] == 3
     for a, b in zip(jax.tree.leaves(tree["params"]),
                     T.leaves(session["state"].params)):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_fl_llm_finetune_twin_fails_when_the_loss_does_not_fall():
+    """F7: the twin keeps the reference's assert.  One round cannot improve
+    on the first loss, so the process exits 1 naming the assert."""
+    import os
+    import subprocess
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.fl_llm_finetune",
+         "--device", "cpu", "--rounds", "1", "--cohort", "2", "--seq-len",
+         "8", "--layers", "1", "--d-model", "32", "--vocab", "64"],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 1, out.stdout + out.stderr
+    assert "training must improve the loss" in out.stderr
+    assert "loss " in out.stdout
+
+
+@pytest.mark.parametrize("losses,fell", [([2.0, 1.5, 1.0], True),
+                                         ([1.0, 1.5, 2.0], False),
+                                         ([1.0], False)])
+def test_fl_llm_finetune_check_is_the_reference_assert(losses, fell):
+    if fell:
+        fl_llm_finetune.check_loss_fell(losses)
+    else:
+        with pytest.raises(AssertionError, match="must improve the loss"):
+            fl_llm_finetune.check_loss_fell(losses)

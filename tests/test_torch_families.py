@@ -31,6 +31,9 @@ from repro_torch.configs import registry as treg
 from repro_torch.kernels import flash_decode as kfd
 from repro_torch.kernels import prf
 from repro_torch.models.model import build_model as tbuild
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 MODEL = dict(rtol=0, atol=1e-4)
 TF_ATOL = 2e-4

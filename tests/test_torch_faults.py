@@ -46,6 +46,9 @@ from repro_torch.core.orchestrator import (CohortSelection,
                                            EligibilityCriteria,
                                            MetadataStore, Orchestrator)
 from repro_torch.kernels import prf
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 D = 41
 FL_KW = dict(clip_norm=1.0, server_lr=1.0, secure_agg_bits=24)

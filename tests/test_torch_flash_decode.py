@@ -16,6 +16,9 @@ import torch
 from repro.kernels import flash_decode as jfd
 from repro.kernels import ref
 from repro_torch.kernels import flash_decode as kfd
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 
 def _inputs(seed, B, H, KV, hd, W):

@@ -31,6 +31,9 @@ from repro_torch.configs.base import FLConfig as TFL
 from repro_torch.core.fl import round as tround
 from repro_torch.models import rglru as trglru
 from repro_torch.models.model import build_model as tbuild
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 ARCHS = ["deepseek-moe-16b", "llama4-scout-17b-a16e", "mamba2-780m",
          "recurrentgemma-2b", "internvl2-76b", "whisper-tiny"]

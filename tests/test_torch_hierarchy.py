@@ -48,6 +48,9 @@ from repro_torch.core.fl.hierarchy import ShardedAsyncServer
 from repro_torch.kernels import prf
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import sharding as tsharding
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 D = 700
 FL_KW = dict(clip_norm=1.0, server_lr=1.0, secure_agg_bits=32)

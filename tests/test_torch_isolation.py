@@ -9,6 +9,9 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
@@ -54,3 +57,35 @@ def test_no_import_statement_names_jax_repro_msgpack_or_triton():
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported(f) if m.split(".")[0] in BANNED]
     assert bad == []
+
+
+def _pins_threads(path: Path) -> bool:
+    """A module-level ``pin_cpu_threads()`` call in the file."""
+    return any(isinstance(n, ast.Expr) and isinstance(n.value, ast.Call)
+               and getattr(n.value.func, "id", None) == "pin_cpu_threads"
+               for n in ast.parse(path.read_text(), str(path)).body)
+
+
+def test_every_port_test_file_pins_torch_cpu_threads():
+    """Under ``pytest -n N`` each worker's torch would start one CPU thread
+    per core; every ``tests/test_torch_*.py`` shares the cores out at
+    import (``repro_torch.testing.pin_cpu_threads``)."""
+    files = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    assert len(files) >= 30
+    assert [f.name for f in files if not _pins_threads(f)] == []
+
+
+def test_pin_cpu_threads_shares_the_cores_among_xdist_workers(monkeypatch):
+    import torch
+
+    from repro_torch.testing import pin_cpu_threads
+    before = torch.get_num_threads()
+    cores = os.cpu_count() or 1
+    try:
+        monkeypatch.setenv("PYTEST_XDIST_WORKER_COUNT", "6")
+        assert pin_cpu_threads() == max(1, cores // 6)
+        assert torch.get_num_threads() == max(1, cores // 6)
+        monkeypatch.delenv("PYTEST_XDIST_WORKER_COUNT")
+        assert pin_cpu_threads() == cores
+    finally:
+        torch.set_num_threads(before)

@@ -18,6 +18,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import prf
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 SEEDS = (0, 1, 0x5A5E, 123_456_789)
 

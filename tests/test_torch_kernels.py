@@ -17,6 +17,9 @@ from repro.kernels import secure_agg as jksa
 from repro_torch.core.fl import secure_agg as sa
 from repro_torch.kernels import prf
 from repro_torch.kernels import secure_agg as ksa
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 KW = (0x1234, 0x5A5E)
 UW = (77, 0xDEADBEEF)

@@ -24,6 +24,9 @@ from repro_torch.configs import qwen2_1_5b as tq
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.fl.async_fl import AsyncServer
 from repro_torch.models.model import init_params, param_shapes
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 
 def _jax_paths_shapes(cfg):

@@ -20,6 +20,9 @@ from repro_torch import convert
 from repro_torch import tree as T
 from repro_torch.configs import registry as treg
 from repro_torch.models import moe as TM
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 LAYER = dict(rtol=1e-5, atol=1e-5)
 ARCHS = ["deepseek-moe-16b", "llama4-scout-17b-a16e"]

@@ -40,6 +40,9 @@ from repro_torch.core.fl.faults import FaultInjector, FaultPlan, FaultSpec
 from repro_torch.core.fl.hierarchy import ShardedAsyncServer
 from repro_torch.core.telemetry import Telemetry
 from repro_torch.examples import observability_smoke as smoke
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 REPO = Path(__file__).resolve().parents[1]
 D = 41

@@ -15,6 +15,9 @@ import torch
 from repro.optim import optimizers as jopt
 from repro_torch import tree as T
 from repro_torch.optim import optimizers as topt
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 EXACT = {"sgd", "sgd_momentum"}
 

@@ -12,6 +12,9 @@ import torch
 
 from repro.kernels import prf as jprf
 from repro_torch.kernels import prf
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 
 def _u32(a):

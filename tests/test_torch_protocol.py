@@ -26,6 +26,9 @@ from repro_torch.core.fl import aggregation as agg
 from repro_torch.core.fl import secure_agg as sa
 from repro_torch.kernels import prf
 from repro_torch.kernels import secure_agg as ksa
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 SHAPES = [(1,), (7,), (3, 5), (2, 3, 11), (1000,)]
 

@@ -23,6 +23,9 @@ from repro_torch import convert
 from repro_torch.configs import registry as treg
 from repro_torch.kernels import prf
 from repro_torch.models import rglru as TR
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 LAYER = dict(rtol=1e-5, atol=1e-5)
 LAMBDA = dict(rtol=1e-4, atol=0)

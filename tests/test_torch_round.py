@@ -49,6 +49,9 @@ from repro_torch.kernels import dp_clip as kdp
 from repro_torch.kernels import prf
 from repro_torch.kernels import secure_agg as ksa
 from repro_torch.models.model import build_mlp_classifier
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 COHORT = 4
 TOL = dict(rtol=0, atol=1e-5)

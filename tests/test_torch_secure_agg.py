@@ -13,6 +13,9 @@ import torch
 from repro.core.fl import secure_agg as jsa
 from repro_torch.core.fl import secure_agg as sa
 from repro_torch.kernels import prf
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 KEY = jax.random.PRNGKey(0x5A5E)
 KW = tuple(int(w) for w in np.asarray(jax.random.key_data(KEY)))

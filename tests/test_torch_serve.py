@@ -33,6 +33,9 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.models.model import build_model as tbuild
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 LAYER = dict(rtol=1e-5, atol=1e-5)
 MODEL = dict(rtol=0, atol=1e-4)
@@ -201,6 +204,29 @@ def test_prefill_attention(q_chunk, window):
                                 return_kv=True)
     for a, b in ((jy, ty), (jk, tk), (jv, tv)):
         _close(a, b, LAYER)
+
+
+# F8: the reference's keyword spellings; cross with and without a causal
+# flag (cross drops RoPE and the mask), a causal override over shifted keys
+@pytest.mark.parametrize("cross,causal", [(True, True), (True, False),
+                                          (False, True)])
+def test_prefill_attention_kv_override_and_cross(cross, causal):
+    jc, tc = _cfgs()
+    rs = np.random.RandomState(9)
+    p = _attn_params(jc, rs)
+    x = _randn(rs, 2, 12, jc.d_model)
+    k = _randn(rs, 2, 20, jc.num_kv_heads, jc.head_dim)
+    v = _randn(rs, 2, 20, jc.num_kv_heads, jc.head_dim)
+    pos = np.arange(12, dtype=np.int32)
+    kpos = np.arange(20, dtype=np.int32) - 6
+    jy = JL.attention(jc, jax.tree.map(jnp.asarray, p), jnp.asarray(x),
+                      jnp.asarray(pos), causal=causal,
+                      kv_override=(jnp.asarray(k), jnp.asarray(v),
+                                   jnp.asarray(kpos)), cross=cross)
+    ty = TL.attention(tc, convert.params_from_numpy(p), _t(x),
+                      torch.arange(12), causal=causal,
+                      kv_override=(_t(k), _t(v), _t(kpos)), cross=cross)
+    _close(jy, ty, LAYER)
 
 
 @pytest.mark.parametrize("W", [32, 8])  # full cache, ring buffer

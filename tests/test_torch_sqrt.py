@@ -17,6 +17,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import prf
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 SRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 

@@ -22,6 +22,9 @@ from repro_torch import tree as T
 from repro_torch.configs import registry as treg
 from repro_torch.models import layers as TL
 from repro_torch.models import ssm as TS
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 LAYER = dict(rtol=1e-5, atol=1e-5)
 ULPS = 4
@@ -102,6 +105,18 @@ def test_ssd_chunked(S, chunk):
     args = _ssd_inputs(np.random.RandomState(S), 2, S, 4, 8, 16)
     jy, jstate = JS.ssd_chunked(*(jnp.asarray(a) for a in args), chunk)
     ty, tstate = TS.ssd_chunked(*(_t(a) for a in args), chunk)
+    _close(jy, ty)
+    _close(jstate, tstate)
+
+
+@pytest.mark.parametrize("unroll", [False, True])
+def test_ssd_chunked_unroll_keyword(unroll):
+    """F8: ``unroll`` only lays out XLA's scan; the port accepts it and
+    computes the same values either way."""
+    args = _ssd_inputs(np.random.RandomState(3), 2, 64, 4, 8, 16)
+    jy, jstate = JS.ssd_chunked(*(jnp.asarray(a) for a in args), 16,
+                                unroll=unroll)
+    ty, tstate = TS.ssd_chunked(*(_t(a) for a in args), 16, unroll=unroll)
     _close(jy, ty)
     _close(jstate, tstate)
 

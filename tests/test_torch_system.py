@@ -31,6 +31,9 @@ from repro.models.model import build_mlp_classifier
 from repro_torch.examples import paper_pipeline
 from repro_torch.kernels import bitagg as k9
 from repro_torch.kernels import dp_clip as kdp
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 ROUNDS, FA_DEVICES = 3, 2_000
 

@@ -13,6 +13,9 @@ import pytest
 from repro.configs.registry import ARCH_IDS
 from repro.launch import train as jtrain
 from repro_torch.launch import train as ttrain
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 LINE = re.compile(r"round\s+(\d+) loss=(\S+) clip%=(\S+) \|u\|=(\S+) "
                   r"eps\(1e-6\)=(\S+) ")

@@ -15,6 +15,9 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
+from repro_torch.testing import pin_cpu_threads
+
+pin_cpu_threads()
 
 
 def _tree():
