@@ -136,6 +136,16 @@ Phases (each prints its seconds):
      also at bits 32 vs bits 0 (within the fixed-point resolution); each
      run's metrics finite, params moved, round split by its ``round.*``
      spans and peak memory;
+  2j. (before phase 3) the cost harness: ``repro_torch.launch.dryrun`` at
+     full width on the production 16 x 16 mesh for decode_32k of every
+     arch and the recorded whisper-tiny x long_500k skip (each pair OK,
+     its dominant term, bound and peak; counted on the host against the
+     H100's rates in ``repro_torch.launch.analysis``), then phase 2c's
+     decode step and phase 2d's round counted on one device: each
+     whole-step bound must not exceed what this run measured for that work
+     (the decode step's device-busy ms, the round's fenced
+     ``round.execute`` ms), and each estimated peak must fall within
+     ``PEAK_BAND`` of the card's own for that work;
   3. the exact kernel launch counts of each path (and zero plain-version
      calls): K10 once per layer per decode step of each serve run (phase
      2g: once per attention layer per step, twice per whisper decoder
@@ -202,22 +212,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): float
-# work (an FMA counted as two operations) against the 67 T/s f32 rate.
-HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
-# Integer (and other non-FMA) instructions against the issue rate: each SM
-# issues at most 4 warp-instructions, 128 lane-operations, per clock, so
-# SMs x 128 x the maximum SM clock (nvidia-smi clocks.max.sm; ~33.4 T/s at
-# 132 SMs and 1.98 GHz).  Set by main() from the card.
-INT_OPS_PER_S = 132 * 128 * 1.98e9
-# integer instructions of one Threefry-2x32-13 evaluation, counted in the
-# SASS of K1's main loop for the 8-slot graph (tools/threefry_sass.py, H100
-# build): 16 evaluations an iteration in 752 IMAD/IADD3/VIADD/LOP3/SHF, 28
-# of them the mask's sign multiply-adds, so (752 - 28) / 16 = 45.25: a
-# round is an add, a funnel-shift rotate and an xor, plus the x1 key
-# injections and some adds the compiler did not fold
-THREEFRY_OPS = 45
+# The card's rates (HBM bytes/s, f32 and integer op/s, the Threefry's
+# instructions) are repro_torch.launch.analysis's, the one place they are
+# kept; main() sets the integer issue rate there from this card.
 
 DEVICE = "cuda"
 NUM_LAYERS = 2
@@ -335,6 +332,20 @@ FLEET_FLIP, FLEET_TILE = 0.1, 1 << 16
 FLEET_TOL = 0.01  # the voted CDF against the values' empirical CDF
 # K9's work per vote: compare, two uniform compares, and, add, add
 K9_OPS = 6
+# phase 2j: the cost harness (repro_torch.launch.dryrun) at full width on
+# the production 16 x 16 mesh, one shape per arch (decode_32k: the whole
+# --all sweep takes ~8.5 min of host time) and the recorded skip; then the
+# whole-step bounds of phases 2c and 2d against their measurements, and
+# each step's estimated peak, which must fall in [PEAK_BAND] of the card's
+DRYRUN_PAIRS = tuple((a, "decode_32k") for a in (
+    "recurrentgemma-2b", "llama4-scout-17b-a16e", "mamba2-780m",
+    "deepseek-moe-16b", "deepseek-7b", "internvl2-76b",
+    "deepseek-coder-33b", "minitron-4b", "qwen2-1.5b", "whisper-tiny")) + (
+    ("whisper-tiny", "long_500k"),)
+PEAK_BAND = (0.75, 1.25)
+# what phases 2c and 2d measured, for phase 2j: {"decode": {"busy_ms",
+# "peak_bytes"}, "round": {"ms", "peak_bytes"}}
+MEASURED: dict = {}
 
 
 def log(msg: str) -> None:
@@ -1575,7 +1586,7 @@ def serve_path(torch, seed: int, counts: dict, smi: str) -> None:
               f"teacher forcing by {err:.3g} > {TF_ATOL}")
         decode_ms = gen.decode_s * 1e3 / SERVE_STEPS
         if name == "full":
-            decode_profile(torch, session, smi, SERVE_S)
+            MEASURED["decode"] = decode_profile(torch, session, smi, SERVE_S)
             init_cost(torch, session, seed, n, smi)
         log(f"  serve {name}: prefill {gen.prefill_s * 1e3:.1f} ms "
             f"({SERVE_B * SERVE_S / gen.prefill_s:.0f} tok/s); decode "
@@ -1612,7 +1623,7 @@ def decode_profile(torch, session: dict, smi: str, prompt: int,
     """``torch.profiler`` over ``steps`` decode steps of a served run (after
     a fresh prefill of its prompt of ``prompt`` tokens): host ms per step,
     device-busy ms per step (the sum of kernel times; one stream), the idle
-    share and the kernels by device time."""
+    share, the kernels by device time and the steps' peak memory."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     model, params = session["model"], session["params"]
@@ -1624,6 +1635,14 @@ def decode_profile(torch, session: dict, smi: str, prompt: int,
     max_len = prompt + len(gen.logits) - 1 + off
     _, cache = model.prefill(params, batch, max_len)
     sync(torch)
+    # the steps' peak: what they allocate beyond everything already held,
+    # plus their arguments (params and cache)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    from repro_torch import tree as T
+    held = sum(t.numel() * t.element_size()
+               for t in T.leaves(params) + T.leaves(cache))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1633,6 +1652,8 @@ def decode_profile(torch, session: dict, smi: str, prompt: int,
                                          prompt + off + i)
         sync(torch)
         host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    peak = (torch.cuda.max_memory_allocated() - base + held
+            if DEVICE == "cuda" else 0)
     del cache
     rows = []
     for e in prof.key_averages():
@@ -1657,7 +1678,7 @@ def decode_profile(torch, session: dict, smi: str, prompt: int,
     for ms, n, key in rows[:8]:
         log(f"    {ms:8.3f} ms/step  x{n:5.0f}  {key[:90]}")
     return {"host_ms": host_ms, "busy_ms": busy, "kernels": n_kernels,
-            "idle": 1 - busy / host_ms, "k10_ms": k10}
+            "idle": 1 - busy / host_ms, "k10_ms": k10, "peak_bytes": peak}
 
 
 # ---------------------------------------------------------------------------
@@ -1911,8 +1932,10 @@ def train_path(torch, seed: int, counts: dict, smi: str) -> dict:
     try:
         ck.save = timed_save
         reset_counts()
+        base = 0
         if DEVICE == "cuda":
             torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
         rc = train.main(TRAIN_ARGS + [
             "--seed", str(seed), "--log-every", "1", "--device", DEVICE,
             "--checkpoint-dir", str(CKPT_DIR), "--checkpoint-every",
@@ -1942,6 +1965,11 @@ def train_path(torch, seed: int, counts: dict, smi: str) -> dict:
             f"without its uniforms and sums); loss {hist[r]['loss']:.4f} "
             f"clip% {hist[r]['clip_fraction']:.2f} |u| "
             f"{hist[r]['update_norm']:.3f}")
+    # the run's own peak (params, state, rounds), beyond what was held
+    MEASURED["round"] = {
+        "ms": min(b["total"] for b in round_breakdown(tel)),
+        "peak_bytes": torch.cuda.max_memory_allocated() - base
+        if DEVICE == "cuda" else 0}
     stash = {"params": session["state"].params, "save_s": save_s[-1]}
     del session
     empty_cache(torch)
@@ -2356,6 +2384,91 @@ def empty_cache(torch) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 2j: the cost harness
+# ---------------------------------------------------------------------------
+def cost_path(smi: str) -> None:
+    """Phase 2j.  (a) ``python -m repro_torch.launch.dryrun`` at full width
+    on the production mesh for ``DRYRUN_PAIRS``: each pair OK (or the
+    recorded skip), its dominant term, bound and peak.  (b) The builders at
+    phases 2c's and 2d's shapes on one device: each whole-step bound must
+    not exceed what the smoke measured for the same work (a decode step's
+    device-busy ms, a round's fenced ``round.execute`` ms), and each
+    estimated peak must fall within ``PEAK_BAND`` of the card's
+    ``max_memory_allocated`` for that work."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import analysis, dryrun, lowering, train
+    out = ROOT / "build" / "smoke_dryrun.jsonl"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    for arch, shape in DRYRUN_PAIRS:
+        rc = dryrun.main(["--arch", arch, "--shape", shape,
+                          "--out", str(out)])
+        check(rc == 0, f"dryrun {arch} x {shape}: exit {rc}")
+    lines = [json.loads(x) for x in out.read_text().splitlines()]
+    check(len(lines) == len(DRYRUN_PAIRS), f"dryrun: {len(lines)} lines")
+    for res in lines:
+        if "skipped" in res:
+            check((res["arch"], res["shape"]) in registry.SKIPS,
+                  f"dryrun: {res['arch']} x {res['shape']} skipped")
+            log(f"  {res['arch']} x {res['shape']}: SKIP (recorded)")
+            continue
+        r = res["roofline"]
+        log(f"  {res['arch']} x {res['shape']} on 16 x 16: "
+            f"{r['dominant']}-bound, {r['bound_time_s'] * 1e3:.4g} ms "
+            f"(compute {r['t_compute_s'] * 1e3:.4g}, memory "
+            f"{r['t_memory_s'] * 1e3:.4g}, collective "
+            f"{r['t_collective_s'] * 1e3:.4g}); peak "
+            f"{res['memory']['peak_bytes_est'] / 2 ** 30:.2f} GiB; "
+            f"replicated {res['replicated_regions'] or 'none'}")
+    log(f"  dryrun: {len(lines)} pairs in {time.perf_counter() - t0:.1f} s "
+        "(counted on the host; the bounds model this card)")
+
+    # (b) the whole step against the card's own measurements
+    cfg = registry.get_config("qwen2-1.5b")
+    targs = train.parse_args(TRAIN_ARGS)
+    steps = (
+        ("decode", lowering.build_decode,
+         ShapeConfig("serve", SERVE_S + SERVE_STEPS, SERVE_B, "decode"),
+         cfg, {"dtype": "float32"}, {},
+         MEASURED["decode"]["busy_ms"], "device-busy ms a decode step"),
+        ("round", lowering.build_train,
+         ShapeConfig("smoke", TRAIN_SEQ, TRAIN_COHORT, "train"),
+         registry.get_config(TRAIN_ARCH, reduced=TRAIN_REDUCED)
+         .with_overrides(max_seq_len=max(TRAIN_SEQ, 64)),
+         {"dtype": "float32",
+          "clients_per_chunk": train.clients_per_chunk(targs)},
+         {"fl_cfg": train.fl_config(targs)}, MEASURED["round"]["ms"],
+         "fenced round.execute ms"),
+    )
+    for name, build, shape, c, opts, kw, meas_ms, what in steps:
+        t0 = time.perf_counter()
+        run, depths = lowering.run_step(build, c, shape, opts=opts, **kw)
+        roof = analysis.roofline(run.counts)
+        mem = analysis.memory_summary(run.memory)
+        bound_ms = roof["bound_time_s"] * 1e3
+        est = mem["peak_bytes_est"]
+        peak = MEASURED[name]["peak_bytes"]
+        ct = roof["compute_terms"]
+        log(f"  {name} (qwen2-1.5b f32, {shape.global_batch} x "
+            f"{shape.seq_len}, one device; depths {depths}): bound "
+            f"{bound_ms:.3f} ms by {roof['dominant']} ({roof['bytes_per_device'] / 1e9:.2f} GB;"
+            f" matmul {ct['matmul_s'] * 1e3:.3f} ms, float "
+            f"{ct['float_s'] * 1e3:.3f} ms, integer "
+            f"{ct['integer_s'] * 1e3:.3f} ms); measured {meas_ms:.3f} "
+            f"{what}: measured / bound {meas_ms / bound_ms:.2f}; peak "
+            f"estimated {est / 2 ** 30:.2f} GiB vs max_memory_allocated "
+            f"{peak / 2 ** 30:.2f} GiB ({est / peak:.3f}); counted in "
+            f"{time.perf_counter() - t0:.1f} s; {smi}")
+        check(bound_ms <= meas_ms, f"{name}: the bound {bound_ms:.3f} ms "
+              f"exceeds the measured {meas_ms:.3f} ms: the count is wrong")
+        check(PEAK_BAND[0] <= est / peak <= PEAK_BAND[1],
+              f"{name}: estimated peak {est} B is {est / peak:.3f} of the "
+              f"card's {peak} B, outside {PEAK_BAND}")
+
+
+# ---------------------------------------------------------------------------
 # phase 2e: federated analytics and the control plane
 # ---------------------------------------------------------------------------
 def _span_ms(tel, name: str) -> list:
@@ -2587,6 +2700,7 @@ def flash_decode_times(torch, launches: int) -> dict:
 
 def kernel_times(torch, counts) -> list:
     from repro_torch.kernels import prf
+    from repro_torch.launch import analysis
     from repro_torch.kernels import secure_agg as ksa
     D = EMBED
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -2609,7 +2723,7 @@ def kernel_times(torch, counts) -> list:
     # multiply, floor, subtract, compare, select, add, convert (7) and a
     # multiply-add per mask word
     evals = (1 + nbrs) * D / 2
-    ops = evals * THREEFRY_OPS + D * (7 + nbrs)
+    ops = evals * analysis.THREEFRY_OPS + D * (7 + nbrs)
     nbytes = D * 4 + D * 4
     out.append(_entry("quantize_mask_prf",
                       "src/repro_torch/kernels/csrc/quantize_mask_prf.cu",
@@ -2640,7 +2754,7 @@ def kernel_times(torch, counts) -> list:
     # two multiplies, floor, subtract, compare, select, add, convert, the
     # accumulate (9) and a multiply-add per mask word
     evals = BUFFER * nbrs * D / 2
-    ops = evals * THREEFRY_OPS + BUFFER * D * (9 + nbrs)
+    ops = evals * analysis.THREEFRY_OPS + BUFFER * D * (9 + nbrs)
     nbytes = 2 * BUFFER * D * 4 + BUFFER * 4 + D * 4
     k2 = _entry("weighted_quantize_accum",
                 "src/repro_torch/kernels/csrc/weighted_quantize_accum.cu",
@@ -2683,7 +2797,7 @@ def kernel_times(torch, counts) -> list:
     full = int(got.numel())
     # one Threefry per two positions of each stream (sign and uniform, as
     # stream_block generates them), 9 butterfly adds, scale, round
-    ops = full * THREEFRY_OPS + full * (9 + 5)
+    ops = full * analysis.THREEFRY_OPS + full * (9 + 5)
     nbytes = D * 4 + full * 4
     k4 = _entry("rotate_quantize_prf",
                 "src/repro_torch/kernels/csrc/rotate_quantize_prf.cu",
@@ -2878,14 +2992,12 @@ def _entry(name, source, replaces, launches, ms, plain_ms, ops, nbytes, *,
     """A kernel's line; ``ops`` are float operations (an FMA two) against
     the f32 rate, or with ``integer`` instructions against the issue
     rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / (INT_OPS_PER_S if integer else OPS_PER_S) * 1e3
+    from repro_torch.launch.analysis import kernel_bound_ms
+    bound, by = kernel_bound_ms(ops, nbytes, integer=integer)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+            "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
 
 
 def reset_counts() -> None:
@@ -2922,15 +3034,15 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     smi = smi[0] if smi else "nvidia-smi: no output"
-    global INT_OPS_PER_S
+    from repro_torch.launch import analysis
     clk = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         timeout=60).stdout.split()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    INT_OPS_PER_S = sms * 128 * float(clk[0]) * 1e6
+    rate = analysis.set_int_rate(sms, float(clk[0]))
     log(f"integer issue rate: {sms} SMs x 128 lane-ops/clk x {clk[0]} MHz "
-        f"= {INT_OPS_PER_S / 1e12:.2f} T/s")
+        f"= {rate / 1e12:.2f} T/s")
 
     with Phase("phase 1: build + kernel parity"):
         build_kernels()
@@ -2977,6 +3089,9 @@ def main() -> int:
 
     with Phase("phase 2e: federated analytics and the control plane"):
         analytics_path(torch, args.seed, counts, smi)
+
+    with Phase("phase 2j: the cost harness and the whole-step roofline"):
+        cost_path(smi)
 
     with Phase("phase 3: kernels on the main path"):
         from repro_torch.kernels import secure_agg as ksa

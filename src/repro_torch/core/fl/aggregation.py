@@ -50,6 +50,7 @@ from repro_torch import tree as T
 from repro_torch.core.fl import compression as comp
 from repro_torch.core.fl import dp
 from repro_torch.core.fl import secure_agg as sa
+from repro_torch.device import is_abstract
 from repro_torch.kernels import dp_clip as kdp
 from repro_torch.kernels import prf
 from repro_torch.kernels import secure_agg as ksa
@@ -219,6 +220,12 @@ def zero_accumulator(params, spec: "AggregationSpec",
                       params)
 
 
+def _host_float(w: torch.Tensor) -> float:
+    """``float(w)``; an abstract ``w`` (the cost harness) has no value to
+    read, and the noise's scale does not change its cost: 1.0."""
+    return 1.0 if is_abstract(w) else float(w)
+
+
 def finalize_aggregate(acc, total_weight, spec: "AggregationSpec", rng):
     """Decode the summed accumulator tree into the noised mean delta; the
     TEE draw (``tee`` placement) is rescaled to the effective weight."""
@@ -229,7 +236,7 @@ def finalize_aggregate(acc, total_weight, spec: "AggregationSpec", rng):
     mean = T.tree_map(lambda a: a / w, agg)
     if spec.tee_noise > 0.0:
         mean = dp.add_noise(mean, rng, spec.tee_noise * spec.num_contributors
-                            / float(w))
+                            / _host_float(w))
     return mean
 
 
@@ -849,5 +856,5 @@ def finalize_plan_aggregate(accs: Sequence[torch.Tensor], total_weight,
     if spec.tee_noise > 0.0:
         mean = dp.add_noise(mean, rng,
                             spec.tee_noise * spec.num_contributors
-                            / float(w))
+                            / _host_float(w))
     return mean

@@ -22,3 +22,18 @@ def resolve(device=None) -> torch.device:
             "repro_torch runs on the GPU by default but torch.cuda reports no "
             "usable device; pass device='cpu' to run on the CPU explicitly")
     return dev
+
+
+def is_abstract(t) -> bool:
+    """True for a tensor without data: on the meta device, or a
+    ``FakeTensor`` (or a ``DTensor`` over fake shards), as the cost harness
+    (``launch.lowering``) runs the program.  Such a tensor has no values to
+    read on the host and no memory to launch a kernel on."""
+    if not isinstance(t, torch.Tensor):
+        return False
+    if type(t) is torch.Tensor and not t.is_meta:
+        return False  # the common case, a real tensor: no further checks
+    if t.is_meta:
+        return True
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(t)

@@ -27,7 +27,9 @@ import ctypes
 
 import torch
 
+from repro_torch.device import is_abstract
 from repro_torch.kernels import prf
+from repro_torch.launch import analysis
 
 # K3 splits a row over this many blocks in all (partial sums), at most
 TARGET_BLOCKS = 132 * 8
@@ -135,6 +137,13 @@ def _raise_on(status: int, name: str) -> None:
 def sq_norms(x: torch.Tensor) -> torch.Tensor:
     """(C, D) f32 -> (C,) f32 per-row sums of squares.  Replaces the
     Pallas ``sq_norms``."""
+    if is_abstract(x):
+        # the cost harness: no launch, the bound's operations and bytes
+        xl = analysis.local(x)
+        C, D = xl.shape
+        analysis.record_kernel("sq_norms", ops=2 * C * D,
+                               nbytes=C * D * 4 + C * 4)
+        return analysis.shard_like(xl.new_empty((C,)), x, {0: 0, 1: None})
     if x.device.type == "cpu":
         sq_norms.plain_calls += 1
         return sq_norms_plain(x)
@@ -155,6 +164,12 @@ def sq_norms(x: torch.Tensor) -> torch.Tensor:
 def scale_accum(x: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """``out[d] = sum_c scales[c] * x[c, d]``: (C, D), (C,) f32 -> (D,) f32.
     Replaces the Pallas ``scale_accum``."""
+    if is_abstract(x):
+        xl = analysis.local(x)
+        C, D = xl.shape
+        analysis.record_kernel("scale_accum", ops=2 * C * D,
+                               nbytes=C * D * 4 + C * 4 + D * 4)
+        return analysis.shard_like(xl.new_empty((D,)), x, {0: None, 1: 0})
     if x.device.type == "cpu":
         scale_accum.plain_calls += 1
         return scale_accum_plain(x, scales)

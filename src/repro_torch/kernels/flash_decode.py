@@ -26,6 +26,9 @@ import math
 
 import torch
 
+from repro_torch.device import is_abstract
+from repro_torch.launch import analysis
+
 NEG = -1e30
 # the kernel's geometry (csrc/flash_decode.cu): 4 warps, a ring of 16-slot
 # K/V tiles, up to 8 query rows of one kv-head per CTA, at most 256 splits
@@ -172,6 +175,24 @@ def _check(t: torch.Tensor, what: str, dtypes, shape) -> None:
         raise ValueError(f"{what} must be 16-byte aligned")
 
 
+def _abstract_call(q, k) -> torch.Tensor:
+    """On abstract tensors (the cost harness, ``launch.lowering``): no
+    launch; the (B, H, hd) f32 output, laid out as ``q``, and the kernel's
+    operations and bytes on this device's shard added to the count: the two
+    products plus mask/max/exp/sum per score, each cache slot read once
+    (``PERF.md``'s bound).  A cache split over its slots on a mesh
+    dimension combines the partial rows with an all-reduce there."""
+    ql, kl = analysis.local(q), analysis.local(k)
+    B, H, hd = ql.shape
+    _, W, KV, _ = kl.shape
+    analysis.record_kernel(
+        "flash_decode", ops=4 * B * H * W * hd + 5 * B * H * W,
+        nbytes=2 * B * W * KV * hd * kl.element_size() + 2 * B * H * hd * 4
+        + W * 4)
+    return analysis.shard_like(torch.empty_like(ql), q, {0: 0, 1: 1, 2: 2},
+                               reduce_over=analysis.split_mesh_dims(k, 1))
+
+
 @_counted
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  slot_pos: torch.Tensor, pos: int, *,
@@ -184,6 +205,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     window: 0 = the whole causal cache, else the sliding window.  Returns
     (B, H, hd) f32.  Replaces the Pallas ``flash_decode``.
     """
+    if is_abstract(q):
+        return _abstract_call(q, k)
     if q.device.type == "cpu":
         flash_decode.plain_calls += 1
         return flash_decode_plain(q, k, v, slot_pos, pos, window=window)

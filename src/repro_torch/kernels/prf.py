@@ -39,6 +39,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+from repro_torch.device import is_abstract
+
 DEFAULT_ROUNDS = 13
 JAX_ROUNDS = 20  # JAX's own threefry_2x32 (key derivation)
 
@@ -344,7 +346,7 @@ def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
     s = p + f64(c)
     r = s.float()
     tie = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
-    if not bool(tie.any()):
+    if is_abstract(tie) or not bool(tie.any()):  # abstract: no ties to read
         return r
     idx = tie.nonzero(as_tuple=True)
     ps, ss = p[idx], s[idx]
@@ -432,6 +434,8 @@ def log1p_f32(x: torch.Tensor) -> torch.Tensor:
     q = _horner(x, _LOG1P_Q)
     p = _horner(x, _LOG1P_P)
     out = x + ((x * x2) * _div_f32(p, q) - x2 * 0.5)
+    if is_abstract(x):  # the cost harness: no data to pick the branch by
+        return out
     big = (x.abs() >= _LOG1P_SMALL).nonzero(as_tuple=True)
     out[big] = log_f32(x[big] + 1.0)
     return out
@@ -445,6 +449,8 @@ def erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
     is computed only where it is taken."""
     w = -log1p_f32(x * -x)
     out = _horner(w - 2.5, _ERFINV_LT5) * x
+    if is_abstract(w):  # the cost harness: no data to pick the branch by
+        return out
     tail = (w >= 5.0).nonzero(as_tuple=True)
     wt = sqrt_f32(w[tail]) - 3.0
     out[tail] = _horner(wt, _ERFINV_GE5) * x[tail]

@@ -47,7 +47,9 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.core.fl import compression as comp
+from repro_torch.device import is_abstract
 from repro_torch.kernels import prf
+from repro_torch.launch import analysis
 
 # neighbours whose pair keys a kernel block stages in shared memory
 MAX_KERNEL_NEIGHBORS = 4000
@@ -609,6 +611,14 @@ def quantize_mask(x: torch.Tensor, mask: Optional[torch.Tensor],
     (D,) int32, the mask added mod 2^32.  Replaces the Pallas
     ``quantize_mask``.
     """
+    if is_abstract(x):
+        # the cost harness: no launch, the bound's operations and bytes
+        xl = analysis.local(x)
+        (D,) = xl.shape
+        analysis.record_kernel("quantize_mask", ops=8 * D,
+                               nbytes=D * (16 if mask is not None else 12))
+        return analysis.shard_like(xl.new_empty((D,), dtype=torch.int32), x,
+                                   {0: 0})
     if x.device.type == "cpu":
         quantize_mask.plain_calls += 1
         return quantize_mask_plain(x, mask, uniforms, scale, value_range)
@@ -639,6 +649,12 @@ def dequantize(q: torch.Tensor, inv: float) -> torch.Tensor:
     """``f32(q) * inv`` for (D,) int32 ``q``; ``inv`` is the f32 multiplier
     (:func:`pallas_inverse` or :func:`jit_inverse` of the scale).  Replaces
     the Pallas ``dequantize``."""
+    if is_abstract(q):
+        ql = analysis.local(q)
+        (D,) = ql.shape
+        analysis.record_kernel("dequantize", ops=D, nbytes=8 * D)
+        return analysis.shard_like(ql.new_empty((D,), dtype=torch.float32),
+                                   q, {0: 0})
     if q.device.type == "cpu":
         dequantize.plain_calls += 1
         return dequantize_plain(q, inv)

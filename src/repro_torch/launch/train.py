@@ -31,9 +31,8 @@ from repro_torch import tree as T
 from repro_torch.kernels import prf
 
 
-def main(argv=None, *, session: Optional[dict] = None):
-    """The train CLI.  ``session``, if a dict, receives the run's ``model``,
-    final ``state`` and every round's ``metrics`` (host floats)."""
+def parse_args(argv=None) -> argparse.Namespace:
+    """The train CLI's arguments."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--classifier", action="store_true",
@@ -57,19 +56,35 @@ def main(argv=None, *, session: Optional[dict] = None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def fl_config(args: argparse.Namespace):
+    """The round's ``FLConfig`` from the CLI's arguments."""
     from repro_torch.configs.base import FLConfig
-    from repro_torch.core.fl.accountant import RDPAccountant
-    from repro_torch.core.fl.round import build_round_step, init_fl_state
-
-    dev = _device.resolve(args.device)
-    fl_cfg = FLConfig(
+    return FLConfig(
         cohort_size=args.cohort, local_steps=args.local_steps,
         local_lr=args.local_lr, clip_norm=args.clip,
         noise_multiplier=args.noise, noise_placement=args.noise_placement,
         server_opt=args.server_opt, server_lr=args.server_lr,
     )
+
+
+def clients_per_chunk(args: argparse.Namespace) -> int:
+    """The round's chunk: up to 8 clients at once."""
+    return min(args.cohort, 8)
+
+
+def main(argv=None, *, session: Optional[dict] = None):
+    """The train CLI.  ``session``, if a dict, receives the run's ``model``,
+    final ``state`` and every round's ``metrics`` (host floats)."""
+    args = parse_args(argv)
+
+    from repro_torch.core.fl.accountant import RDPAccountant
+    from repro_torch.core.fl.round import build_round_step, init_fl_state
+
+    dev = _device.resolve(args.device)
+    fl_cfg = fl_config(args)
     key = prf.PRNGKey(args.seed)
 
     if args.classifier:
@@ -84,7 +99,7 @@ def main(argv=None, *, session: Optional[dict] = None):
     del params
     round_step = build_round_step(
         model.loss_fn, fl_cfg, cohort_size=args.cohort,
-        clients_per_chunk=min(args.cohort, 8), device=dev)
+        clients_per_chunk=clients_per_chunk(args), device=dev)
     accountant = RDPAccountant()
     q = args.cohort / args.population
     history = []

@@ -185,6 +185,10 @@ def attention(cfg, p, x, positions, *, causal: bool = True,
     else:
         k_positions = positions
     q = q * cfg.head_dim ** -0.5
+    if cfg.attn_seq_shard:
+        # context parallelism: queries split over `model` (K/V whole), so
+        # attention splits even where the heads do not divide the axis
+        q = _over_model(q, 1)
 
     chunk = cfg.attn_q_chunk or ATTN_QUERY_CHUNK
     outs = []
@@ -205,6 +209,23 @@ def attention(cfg, p, x, positions, *, causal: bool = True,
     if return_kv:
         return y, (k, v)
     return y
+
+
+def _over_model(t, dim: Optional[int]):
+    """The reference's ``attn_seq_shard`` constraint as a ``DTensor``
+    layout: ``t`` split along ``dim`` over the mesh's ``model`` axis
+    (``dim=None``: whole on it), its other mesh axes as they were.  A plain
+    tensor (one device) is returned as it is."""
+    if type(t) is torch.Tensor:
+        return t
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    names = t.device_mesh.mesh_dim_names if isinstance(t, DTensor) else None
+    if not names or "model" not in names:
+        return t
+    placements = list(t.placements)
+    placements[names.index("model")] = Replicate() if dim is None \
+        else Shard(dim)
+    return t.redistribute(t.device_mesh, placements)
 
 
 def fill_kv_cache(cfg, cache, k, v, positions):
@@ -274,8 +295,15 @@ def attention_decode(cfg, p, x, cache, pos: int, *,
     cache["v"][:, slot] = v_new[:, 0]
     cache["pos"][slot] = pos
 
-    out = K.flash_decode(q[:, 0].float().contiguous(), cache["k"],
-                         cache["v"], cache["pos"], pos, window=window or 0)
+    k, v, slot_pos = cache["k"], cache["v"], cache["pos"]
+    q = q[:, 0].float().contiguous()
+    if cfg.attn_seq_shard:
+        # decode context parallelism: each device scores its share of the
+        # cache's slots for every head; the partial rows combine
+        q = _over_model(q, None)
+        k, v, slot_pos = (_over_model(k, 1), _over_model(v, 1),
+                          _over_model(slot_pos, 0))
+    out = K.flash_decode(q, k, v, slot_pos, pos, window=window or 0)
     out = out.to(x.dtype)[:, None]  # (B, 1, H, hd)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), cache
 

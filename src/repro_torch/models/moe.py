@@ -30,6 +30,7 @@ from typing import Tuple
 import torch
 
 from repro_torch import tree as T
+from repro_torch.device import is_abstract
 from repro_torch.kernels import prf
 from repro_torch.models import layers as L
 
@@ -66,6 +67,15 @@ def init_moe(key, cfg, device=None):
     return p
 
 
+def _bincount(flat: torch.Tensor, E: int) -> torch.Tensor:
+    """``torch.bincount(flat, minlength=E)`` for ids in ``[0, E)``; on an
+    abstract tensor (the cost harness), whose length bincount cannot know,
+    the same one pass over ``flat`` as an ``index_add_``."""
+    if not is_abstract(flat):
+        return torch.bincount(flat, minlength=E)
+    return flat.new_zeros((E,)).index_add_(0, flat, torch.ones_like(flat))
+
+
 def route(cfg, p, x_flat) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (gates (T,k), expert_idx (T,k) int64, aux_loss scalar).
 
@@ -79,7 +89,7 @@ def route(cfg, p, x_flat) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     # Switch-style load-balance loss: E * sum_e fraction_e * prob_e
     n_tok, E = probs.shape
-    counts = torch.bincount(idx.reshape(-1), minlength=E).float()
+    counts = _bincount(idx.reshape(-1), E).float()
     frac = counts / torch.tensor(float(n_tok * k), device=counts.device)
     aux = E * torch.sum(frac * probs.mean(0))
     return gates.to(x_flat.dtype), idx, aux
@@ -97,7 +107,7 @@ def positions_and_keep(E: int, C: int, idx):
     keep (T,k), per-expert counts (E,))."""
     flat = idx.reshape(-1)
     order = torch.argsort(flat, stable=True)
-    counts = torch.bincount(flat, minlength=E)
+    counts = _bincount(flat, E)
     starts = torch.cumsum(counts, 0) - counts  # exclusive prefix
     ranks = torch.arange(flat.numel(), device=flat.device) - starts[flat[order]]
     pos = torch.empty_like(flat).scatter_(0, order, ranks)
@@ -111,7 +121,9 @@ def _dispatch(cfg, p, x_flat, gates, idx, C: int):
     E, k = cfg.num_experts, cfg.experts_per_token
     pos, keep, counts = positions_and_keep(E, C, idx)
     cap = min(C, n_tok)  # an expert takes at most one pair per token
-    if E * cap * d > BUFFER_ELEMS:
+    # abstract tensors (the cost harness) have no counts to read: they keep
+    # the static worst case
+    if E * cap * d > BUFFER_ELEMS and not is_abstract(counts):
         cap = min(cap, max(int(counts.max()), 1))
     slot = torch.where(keep, idx * cap + pos, E * cap)  # dropped: trash row
     tok = torch.arange(n_tok, device=x_flat.device).repeat_interleave(k)

@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Dict, Iterator, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as T
 from repro_torch.kernels import prf
@@ -269,10 +270,22 @@ def init_stack(key, cfg, device=None) -> Dict:
 
 
 def apply_stack(cfg, p, x, positions, *, use_ragged_moe: bool = False):
+    """The blocks in order.  With ``cfg.remat`` each block of a scanned
+    tail (every block of an unscanned stack) is checkpointed, as the
+    reference ``jax.checkpoint``s its scan body: its activations are
+    recomputed in the backward pass instead of kept."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, lp in _layers(cfg, p, unbind=True):
-        x, aux = apply_block(cfg, lp, x, positions, kind,
-                             use_ragged_moe=use_ragged_moe)
+    head = cfg.first_k_dense if _is_scannable(cfg) else 0
+    for i, (kind, lp) in enumerate(_layers(cfg, p, unbind=True)):
+        def block(h, lp=lp, kind=kind):
+            return apply_block(cfg, lp, h, positions, kind,
+                               use_ragged_moe=use_ragged_moe)
+        if cfg.remat and i >= head:
+            # the blocks draw no random numbers: no RNG state to replay
+            x, aux = checkpoint(block, x, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = block(x)
         aux_total = aux_total + aux
     return x, aux_total
 

@@ -208,7 +208,10 @@ def test_pack_residues_plain_matches_pallas_ref_and_host_codec(bits):
 
 def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
     """Only a CPU tensor takes the plain version; any other device goes to
-    the kernel path, which checks its inputs and raises instead."""
+    the kernel path, which checks its inputs and raises instead.  A meta
+    tensor has no data: the wrappers that the cost harness reaches (K6,
+    K7, K3, K8) return an empty meta result of the output's shape and
+    dtype (their cost hook), never the plain version's; the others raise."""
     ksa.reset_counts()
     x = torch.empty(16, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -225,10 +228,12 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
         ksa.unpack_residues(q[:38], 64, 19)
     with pytest.raises(ValueError, match="expected 38"):
         ksa.unpack_residues(q[:37], 64, 19)
-    with pytest.raises(ValueError, match="CUDA"):
-        ksa.quantize_mask(x, None, x, SCALE, 4.0)
-    with pytest.raises(ValueError, match="CUDA"):
-        ksa.dequantize(q, 1e-4)
+    out = ksa.quantize_mask(x, None, x, SCALE, 4.0)
+    assert (out.device.type, out.shape, out.dtype) == (
+        "meta", (16,), torch.int32)
+    out = ksa.dequantize(q, 1e-4)
+    assert (out.device.type, out.shape, out.dtype) == (
+        "meta", (64,), torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
         ksa.weighted_quantize_accum(x.reshape(2, 8), x[:2], x.reshape(2, 8),
                                     SCALE, session=_tsession(8, 0))
@@ -239,9 +244,9 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
                              "dequantize", ksa.PRF_LANE)}
     from repro_torch.kernels import dp_clip as kdp
     kdp.reset_counts()
-    with pytest.raises(ValueError, match="CUDA"):
-        kdp.sq_norms(x.reshape(2, 8))
-    with pytest.raises(ValueError, match="CUDA"):
-        kdp.scale_accum(x.reshape(2, 8), x[:2])
+    out = kdp.sq_norms(x.reshape(2, 8))
+    assert (out.device.type, out.shape) == ("meta", (2,))
+    out = kdp.scale_accum(x.reshape(2, 8), x[:2])
+    assert (out.device.type, out.shape) == ("meta", (8,))
     assert kdp.counts() == {name: {"launches": 0, "plain_calls": 0}
                             for name in ("sq_norms", "scale_accum")}

@@ -28,7 +28,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-from chip_smoke import FD_SHAPES, HBM_BYTES_PER_S, _cycled, _device_ms  # noqa: E402
+from chip_smoke import FD_SHAPES, _cycled, _device_ms  # noqa: E402
+from repro_torch.launch.analysis import HBM_BW  # noqa: E402
 
 H, KV, HD = 12, 2, 128
 MERGE = "  if (!last) return;\n  __threadfence();\n"
@@ -104,7 +105,7 @@ def main() -> int:
         slot = torch.arange(W, device="cuda", dtype=torch.int32)
         part_acc = torch.empty((B, H, nsplit, HD), device="cuda")
         part_ml = torch.empty((B, H, nsplit, 2), device="cuda")
-        bound = 2 * B * W * KV * HD * 4 / HBM_BYTES_PER_S * 1e3
+        bound = 2 * B * W * KV * HD * 4 / HBM_BW * 1e3
         for name, fn in libs.items():
             def call(i, fn=fn):
                 out = torch.empty_like(q)

@@ -22,7 +22,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-from chip_smoke import FD_SHAPES, HBM_BYTES_PER_S, _cycled, _device_ms  # noqa: E402
+from chip_smoke import FD_SHAPES, _cycled, _device_ms  # noqa: E402
+from repro_torch.launch.analysis import HBM_BW  # noqa: E402
 
 SHAPES = FD_SHAPES[:1] + (("b32_w8192", 32, 8192),) + FD_SHAPES[1:]
 # split counts tried beside the wrapper's choice, as multiples of it
@@ -53,7 +54,7 @@ def main() -> int:
             vs = [torch.randn(B, W, KV, HD, generator=g, device="cuda")
                   .to(dtype) for _ in range(nbuf)]
             bound = 2 * B * W * KV * HD * ks[0].element_size() \
-                / HBM_BYTES_PER_S * 1e3
+                / HBM_BW * 1e3
             want = kfd.flash_decode_plain(q, ks[0], vs[0], slot, W - 1)
             per_sm = kfd.ctas_per_sm("cuda", HD, dtype == torch.bfloat16)
             default = choose(B, KV, H // KV, W, sms=sms, per_sm=per_sm)
