@@ -47,6 +47,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import tree as T
+from repro_torch.core import telemetry as tele
 from repro_torch.core.fl import compression as comp
 from repro_torch.core.fl import dp
 from repro_torch.core.fl import secure_agg as sa
@@ -121,6 +122,26 @@ def kernel_session(session: sa.MaskSession, device=None) -> ksa.SessionMeta:
         key_words=session.key_words(), num_slots=session.num_slots,
         degree=session.degree, slot_offset=session.slot_offset,
         neighbors=session.neighbor_table(device=device))
+
+
+def _no_span(name: str, **labels):
+    return tele._NULL_SPAN
+
+
+def stage_spans(telemetry: Optional["tele.Telemetry"] = None,
+                labels=None):
+    """``span(name, **more)``: a stage span on ``telemetry`` (default: the
+    process registry) carrying the calling engine's ``labels``.  A registry
+    that records no spans gets the shared null span, with no label dict
+    built."""
+    tel = telemetry if telemetry is not None else tele.get_default()
+    if not tel.record_spans:
+        return _no_span
+    labels = labels or {}
+
+    def span(name: str, **more):
+        return tel.span(name, **labels, **more)
+    return span
 
 
 def _scalar(v, device) -> torch.Tensor:
@@ -463,7 +484,8 @@ def plan_operators(spec: AggregationSpec, plan: ParamPlan, session_key, *,
 # ---------------------------------------------------------------------------
 def encode_plan_flat(xs: Sequence[torch.Tensor], weight, slot: int,
                      spec: AggregationSpec, plan: ParamPlan, sessions, rng, *,
-                     masked: bool = True, ops=None):
+                     masked: bool = True, ops=None, telemetry=None,
+                     labels=None):
     """The streamed per-arrival encode on pre-chunked flat tensors.
 
     One GLOBAL clip scale from the whole-model norm, the
@@ -477,31 +499,41 @@ def encode_plan_flat(xs: Sequence[torch.Tensor], weight, slot: int,
     at the chunk's global offset), keep the ``op.idx`` coordinates, then
     mask at the wire width.  Returns (tuple of PADDED (wire padded_c,)
     int32 rows, pre-clip norm, was_clipped).
+
+    ``telemetry`` (default: the process registry) records the fenced
+    ``push.clip`` (the whole-model norm and clip scale) and ``push.encode``
+    (the chunk loop) stages, each with ``labels``.
     """
+    span = stage_spans(telemetry, labels)
     dev = xs[0].device
-    nrm = prf.sqrt_f32(plan_sq_norms(plan, xs))
-    clip_scale = clip_scales(nrm, spec.clip_norm)
-    weight = torch.as_tensor(weight, dtype=torch.float32, device=dev)
-    u_words = prf.fold_in(rng, 2)
-    wire = plan_wire_chunks(spec, plan) if ops is not None else None
-    rows = []
-    for c, (ck, x) in enumerate(zip(plan.chunks, xs)):
-        xw = _weight_noise(x, weight, clip_scale, spec,
-                           plan.chunk_noise_key(rng, c))
-        if ops is not None:
-            rows.append(_encode_compressed(xw, ck, ops[c], wire[c], slot,
-                                           spec, sessions, c, u_words,
-                                           masked))
-            continue
-        if masked:
-            row = ksa.quantize_mask_prf(
-                xw, spec.sa_scale, slot, u_words,
-                kernel_session(sessions[c], dev), u_offset=ck.offset)
-        else:
-            row = _stream_quantize(xw, spec.sa_scale, rng, offset=ck.offset)
-        if ck.padded > ck.size:
-            row = torch.nn.functional.pad(row, (0, ck.padded - ck.size))
-        rows.append(row)
+    with span("push.clip") as sp:
+        nrm = prf.sqrt_f32(plan_sq_norms(plan, xs))
+        clip_scale = clip_scales(nrm, spec.clip_norm)
+        sp.fence(clip_scale)
+    with span("push.encode", chunks=plan.num_chunks) as sp:
+        weight = torch.as_tensor(weight, dtype=torch.float32, device=dev)
+        u_words = prf.fold_in(rng, 2)
+        wire = plan_wire_chunks(spec, plan) if ops is not None else None
+        rows = []
+        for c, (ck, x) in enumerate(zip(plan.chunks, xs)):
+            xw = _weight_noise(x, weight, clip_scale, spec,
+                               plan.chunk_noise_key(rng, c))
+            if ops is not None:
+                rows.append(_encode_compressed(xw, ck, ops[c], wire[c], slot,
+                                               spec, sessions, c, u_words,
+                                               masked))
+                continue
+            if masked:
+                row = ksa.quantize_mask_prf(
+                    xw, spec.sa_scale, slot, u_words,
+                    kernel_session(sessions[c], dev), u_offset=ck.offset)
+            else:
+                row = _stream_quantize(xw, spec.sa_scale, rng,
+                                       offset=ck.offset)
+            if ck.padded > ck.size:
+                row = torch.nn.functional.pad(row, (0, ck.padded - ck.size))
+            rows.append(row)
+        sp.fence(rows)
     return tuple(rows), nrm, (clip_scale < 1.0).to(torch.float32)
 
 
@@ -625,17 +657,19 @@ def _encode_compressed(xw: torch.Tensor, ck: ChunkSpec, op: comp.ChunkOps,
 
 def encode_plan_contribution(delta, weight, slot: int, spec: AggregationSpec,
                              plan: ParamPlan, sessions, rng, *,
-                             masked: bool = True, ops=None):
+                             masked: bool = True, ops=None, telemetry=None,
+                             labels=None):
     """Tree form of :func:`encode_plan_flat` — the client-side encode."""
     return encode_plan_flat(plan.chunk_arrays(delta), weight, slot, spec,
-                            plan, sessions, rng, masked=masked, ops=ops)
+                            plan, sessions, rng, masked=masked, ops=ops,
+                            telemetry=telemetry, labels=labels)
 
 
 def aggregate_plan_masked_buffer(bufs: Sequence[torch.Tensor], present,
                                  total_weight, spec: AggregationSpec,
                                  plan: ParamPlan, sessions, rng, *,
                                  recover: bool = True, masked: bool = True,
-                                 ops=None):
+                                 ops=None, telemetry=None, labels=None):
     """Modular sum of the streamed int32 rows + dropout recovery + decode.
 
     ``present`` is host metadata (one flag per slot).  With ``recover``,
@@ -643,24 +677,33 @@ def aggregate_plan_masked_buffer(bufs: Sequence[torch.Tensor], present,
     re-adds the absent slots' mask shares at the unpadded WIRE width;
     without it the session is known complete and the masks cancel in the
     plain sum.  ``ops`` decodes operator-domain (compressed) buffers.
+    ``telemetry`` (default: the process registry) records the fenced
+    stages, each with ``labels``: ``decode.sum`` and ``decode.recover`` per
+    chunk, then ``decode.finalize``.
     """
+    span = stage_spans(telemetry, labels)
     pres = sa.present_flags(present)
+    gate = [p == 1 for p in pres] if recover else None
     wire = plan_wire_chunks(spec, plan)
     accs = []
     for c, (wc, mbuf) in enumerate(zip(wire, bufs)):
-        if recover:
-            acc = sum_rows(mbuf, [p == 1 for p in pres])
-            if masked:
+        with span("decode.sum", chunk=c) as sp:
+            acc = sum_rows(mbuf, gate)
+            sp.fence(acc)
+        if recover and masked:
+            with span("decode.recover", chunk=c) as sp:
                 rec = sessions[c].recovery((wc.size,), pres,
                                            device=mbuf.device)
                 if wc.padded > wc.size:
                     rec = torch.nn.functional.pad(rec, (0, wc.padded - wc.size))
                 acc = prf.to_int32(prf.words_of(acc) + prf.words_of(rec))
-        else:
-            acc = sum_rows(mbuf)
+                sp.fence(acc)
         accs.append(acc)
-    return finalize_plan_aggregate(accs, total_weight, spec, plan,
-                                   prf.fold_in(rng, 0xDEE), ops=ops)
+    with span("decode.finalize") as sp:
+        mean = finalize_plan_aggregate(accs, total_weight, spec, plan,
+                                       prf.fold_in(rng, 0xDEE), ops=ops)
+        sp.fence(mean)
+    return mean
 
 
 # ---------------------------------------------------------------------------

@@ -160,16 +160,20 @@ def build_async_buffer_step(params, fl_cfg, *, buffer_size: int,
 def build_masked_async_buffer_step(params, fl_cfg, *, buffer_size: int,
                                    recover: bool = True,
                                    masked: bool = True,
+                                   telemetry=None,
                                    device=None) -> Callable:
     """``step(params, opt_state, mbufs, present, weights, staleness, norms,
-    clips, session_key, rng, ops=None)`` — the flush of the streamed int32
-    buffer on ``device`` (default the GPU).
+    clips, session_key, rng, ops=None, labels=None)`` — the flush of the
+    streamed int32 buffer on ``device`` (default the GPU).
 
     ``present`` is the per-slot delivery flags (host list or tensor).
     ``recover=True`` gates absent slots and (``masked``) re-adds their mask
     shares; ``recover=False`` is the complete-session flush.  Under an
     active compression spec the buffers hold operator-domain rows, decoded
     with ``ops`` (derived from ``session_key`` when not given).
+    ``telemetry`` (default: the process registry) records the flush's
+    fenced stages, each with the call's ``labels``: those of
+    ``aggregation.aggregate_plan_masked_buffer``, then ``decode.server``.
     """
     _device.resolve(device)
     spec = agg.make_spec(fl_cfg, buffer_size)
@@ -179,7 +183,8 @@ def build_masked_async_buffer_step(params, fl_cfg, *, buffer_size: int,
     plan = agg.plan_for(params, fl_cfg)
 
     def step(params, opt_state, mbufs, present, weights, staleness, norms,
-             clips, session_key, rng, ops=None):
+             clips, session_key, rng, ops=None, labels=None):
+        span = agg.stage_spans(telemetry, labels)
         mbufs = mbufs if isinstance(mbufs, (tuple, list)) else (mbufs,)
         pres = torch.as_tensor(sa.present_flags(present), dtype=torch.float32,
                                device=weights.device)
@@ -192,8 +197,11 @@ def build_masked_async_buffer_step(params, fl_cfg, *, buffer_size: int,
                                      device=weights.device)
         mean_delta = agg.aggregate_plan_masked_buffer(
             mbufs, present, w_total, spec, plan, sessions, rng,
-            recover=recover, masked=masked, ops=ops)
-        new_params, new_opt = server.apply(params, opt_state, mean_delta)
+            recover=recover, masked=masked, ops=ops, telemetry=telemetry,
+            labels=labels)
+        with span("decode.server") as sp:
+            new_params, new_opt = server.apply(params, opt_state, mean_delta)
+            sp.fence(new_params)
         denom = torch.clamp(w_total, min=1e-9)
         metrics = {
             "update_norm": (norms * w).sum() / denom,
@@ -320,10 +328,10 @@ class AsyncServer:
             self._clips = torch.zeros_like(self._wts)
             self._step = build_masked_async_buffer_step(
                 self.params, fl_cfg, buffer_size=buffer_size, recover=False,
-                masked=self._masked, device=dev)
+                masked=self._masked, telemetry=self.telemetry, device=dev)
             self._flush_step = build_masked_async_buffer_step(
                 self.params, fl_cfg, buffer_size=buffer_size, recover=True,
-                masked=self._masked, device=dev)
+                masked=self._masked, telemetry=self.telemetry, device=dev)
         else:
             self._bufs = tuple(
                 torch.zeros((buffer_size, ck.padded), dtype=torch.float32,
@@ -361,9 +369,17 @@ class AsyncServer:
     def _upload_lane(self) -> str:
         return "packed" if self._spec.compression.identity else "compressed"
 
+    def _span_labels(self, **labels) -> Optional[dict]:
+        """The labels of this engine's spans in the open session (None
+        when the registry records no spans)."""
+        if not self.telemetry.record_spans:
+            return None
+        return dict(round=self.version, **self._tl, **labels)
+
     def _span(self, name: str, **labels):
-        return self.telemetry.span(name, round=self.version, **self._tl,
-                                   **labels)
+        if not self.telemetry.record_spans:
+            return tele._NULL_SPAN
+        return self.telemetry.span(name, **self._span_labels(**labels))
 
     def open_slots(self) -> List[int]:
         return [i for i, p in enumerate(self._present) if not p]
@@ -380,7 +396,8 @@ class AsyncServer:
         delta = _as_device_tree(delta, self.device)
         rows, nrm, clipped = agg.encode_plan_contribution(
             delta, w, slot, spec, plan, sessions, rng, masked=self._masked,
-            ops=self._operators())
+            ops=self._operators(), telemetry=self.telemetry,
+            labels=self._span_labels(slot=slot))
         return rows, w, nrm, clipped
 
     def _enclave_wire(self, delta, key):
@@ -523,7 +540,9 @@ class AsyncServer:
     def _store_row(self, slot: int, rows, staleness, w, nrm, clipped,
                    rng=None) -> None:
         """Write one encoded row into its session slot (+ apply when full)."""
-        self._write_row(slot, rows, staleness, w, nrm, clipped)
+        with self._span("push.store", slot=slot) as sp:
+            self._write_row(slot, rows, staleness, w, nrm, clipped)
+            sp.fence(self._bufs)
         self._present[slot] = True
         self._fill += 1
         self.telemetry.count("stored_contributions", **self._tl)
@@ -541,8 +560,18 @@ class AsyncServer:
             return sum(1 for i in range(k)
                        if self.push(T.tree_map(lambda x: x[i], delta),
                                     client_version, rng, slot=slots[i]))
-        with self._span("push", mode=self.mask_mode):
+        with self._span("push", mode=self.mask_mode,
+                        slot=self._push_slot(slot)):
             return self._push_one(delta, client_version, rng, slot, push_id)
+
+    def _push_slot(self, slot: Optional[int]) -> int:
+        """The traced ``push`` span's ``slot``: the slot the push names,
+        else the first open one (-1: none; not looked up untraced)."""
+        if slot is not None:
+            return int(slot)
+        if not self.telemetry.record_spans:
+            return -1
+        return next((i for i, p in enumerate(self._present) if not p), -1)
 
     def _push_one(self, delta, client_version: int, rng=None,
                   slot: Optional[int] = None,
@@ -624,7 +653,7 @@ class AsyncServer:
                     self.params, self._opt_state, self._bufs,
                     list(self._present), self._wts, self._stal, self._norms,
                     self._clips, self._session_key(), rng,
-                    ops=self._operators())
+                    ops=self._operators(), labels=self._span_labels())
             else:
                 self.params, self._opt_state, self.last_metrics = self._step(
                     self.params, self._opt_state, self._bufs, self._stal,

@@ -718,11 +718,19 @@ class ShardedAsyncServer:
         self._token_counter += 1
         return self._token_counter
 
+    def _span_labels(self, **labels) -> Optional[dict]:
+        """The labels of this tier's spans in the open session (None when
+        the registry records no spans)."""
+        if not self.telemetry.record_spans:
+            return None
+        return dict(round=self.version,
+                    topology="tree" if self.two_level else "flat",
+                    **self._tl, **labels)
+
     def _span(self, name: str, **labels):
-        return self.telemetry.span(
-            name, round=self.version,
-            topology="tree" if self.two_level else "flat",
-            **self._tl, **labels)
+        if not self.telemetry.record_spans:
+            return tele._NULL_SPAN
+        return self.telemetry.span(name, **self._span_labels(**labels))
 
     def _operators(self):
         """The session's compression operators (None: identity), keyed by
@@ -867,7 +875,8 @@ class ShardedAsyncServer:
         xs = self._plan.chunk_arrays(_as_device_tree(delta, self.device))
         rows, nrm, clipped = agg.encode_plan_flat(
             xs, w, mslot, self._spec, self._plan, sessions, rng,
-            masked=self._masked, ops=self._operators())
+            masked=self._masked, ops=self._operators(),
+            telemetry=self.telemetry, labels=self._span_labels(slot=gslot))
         return rows, w, nrm, clipped
 
     def _write(self, leaf: int, lslot: int, rows, staleness, w, nrm,

@@ -59,7 +59,8 @@ def _label_key(labels: Mapping[str, Any]) -> Tuple[Tuple[str, Any], ...]:
 
 @dataclass
 class SpanRecord:
-    """One completed span (times from ``time.perf_counter_ns``)."""
+    """One completed span (times from ``time.perf_counter_ns``; Unix time
+    of the start: the registry's ``epoch_unix_ns + t0_ns``)."""
 
     name: str
     sid: int  # per-registry span id
@@ -175,6 +176,9 @@ class Telemetry:
         self.fence = fence
         self.max_spans = max_spans
         self.epoch_ns = time.perf_counter_ns()
+        # the epoch on the Unix clock: a span starts at ``epoch_unix_ns +
+        # t0_ns``, which places it on a device trace's clock
+        self.epoch_unix_ns = time.time_ns()
         self.spans: List[SpanRecord] = []
         self._stack: List[int] = []
         self._next_sid = 0

@@ -21,7 +21,9 @@ be derived here without JAX.
 Host-side generation is TILED over the stream axis (``TILE`` words at a
 time): a full-width model chunk has hundreds of millions of positions and an
 untiled ``int64`` stream of that size would need tens of GB.  The streams are
-counter-based and the sums are mod 2^32, so tiling is bit-identical.
+counter-based and the sums are mod 2^32, so tiling is bit-identical.  Each
+pass of a tile loop (one batch of ~150 int64 torch launches) adds 1 to the
+process registry's counter ``prf_host_tiles{rounds=13|20}``.
 
 ``split``, ``random_bits``, ``uniform``, ``normal``, ``randint`` and
 ``permutation`` rebuild JAX's own draws (the threefry implementation with
@@ -39,6 +41,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from repro_torch.core import telemetry as tele
 from repro_torch.device import is_abstract
 
 DEFAULT_ROUNDS = 13
@@ -156,6 +159,12 @@ def stream_at(pk0, pk1, e, *, tag: int = TAG_MASK,
     return to_int32(torch.where((e & 1) == 0, y0, y1))
 
 
+def _count_tiles(passes: int, rounds: int) -> None:
+    """Add a host tile loop's ``passes`` to ``prf_host_tiles{rounds}``."""
+    if passes:
+        tele.get_default().count("prf_host_tiles", passes, rounds=rounds)
+
+
 def _tiled(pk0, pk1, length: int, offset: int, tag: int, rounds: int,
            device, dtype, finish) -> torch.Tensor:
     pk0, pk1 = torch.broadcast_tensors(as_words(pk0, device),
@@ -166,6 +175,7 @@ def _tiled(pk0, pk1, length: int, offset: int, tag: int, rounds: int,
     for b in batch:
         rows *= b
     step = max(2, (TILE // max(rows, 1)) & ~1)
+    _count_tiles(-(-length // step), rounds)
     for s in range(0, length, step):
         t = min(length, s + step)
         out[..., s:t] = finish(words(pk0, pk1, offset + s, offset + t,
@@ -220,6 +230,7 @@ def signed_pair_sum(k0: int, k1: int, lo: Sequence[int], hi: Sequence[int],
     g = torch.tensor([s for _, _, s in sel], dtype=torch.int64, device=device)
     group = max(1, min(len(sel), TILE // 4096))
     step = max(2, (TILE // group) & ~1)
+    _count_tiles(-(-len(sel) // group) * -(-length // step), DEFAULT_ROUNDS)
     for p in range(0, len(sel), group):
         q = min(len(sel), p + group)
         for s in range(0, length, step):
@@ -256,6 +267,7 @@ def _draw(key, shape, device, dtype, finish) -> torch.Tensor:
     n = math.prod(shape)
     out = torch.empty((n,), dtype=dtype, device=device)
     step = jax_tile(out.device)
+    _count_tiles(-(-n // step), JAX_ROUNDS)
     for s in range(0, n, step):
         t = min(n, s + step)
         y0, y1 = _jax_lanes(key, s, t, out.device)

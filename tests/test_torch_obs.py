@@ -362,9 +362,26 @@ def test_observability_smoke_twin_prints_the_reference_ledgers(tmp_path,
     want = capsys.readouterr().out.splitlines()
     assert got[:2] == want[:2]  # "recorded: {...}", "replayed: {...}"
     assert got[2].startswith("exported ") and want[2].startswith("exported ")
-    assert got[2].split()[1:4] == want[2].split()[1:4]  # span/row counts
     for name in ("trace.json", "metrics.prom", "rounds.csv"):
         assert (tmp_path / "port" / name).stat().st_size > 0
+    # span and round-CSV row counts over the span names the reference
+    # emits; the port's stage spans beyond them each sit inside one
+    n_spans, _, n_rows = want[2].split()[1:4]
+    ref_trace = json.loads((tmp_path / "ref" / "trace.json").read_text())
+    ref_names = {e["name"] for e in ref_trace["traceEvents"]
+                 if e.get("ph") == "X"}
+    spans = session["tel2"].spans
+    assert sum(s.name in ref_names for s in spans) == int(n_spans)
+    with open(tmp_path / "port" / "rounds.csv") as f:
+        rows = list(csv.reader(f))[1:]
+    assert sum(r[1] in ref_names for r in rows) == int(n_rows)
+    by_sid = {s.sid: s for s in spans}
+    for s in spans:
+        if s.name not in ref_names:
+            up = s
+            while up.name not in ref_names and up.parent is not None:
+                up = by_sid[up.parent]
+            assert up.name in ref_names, s.name
     srv, srv2 = session["srv"], session["srv2"]
     assert all(torch.equal(srv.params[k], srv2.params[k]) for k in "wb")
     assert session["inj"].plan.trace == session["inj2"].plan.trace
