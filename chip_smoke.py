@@ -172,7 +172,11 @@ Phases (each prints its seconds):
      device time (calls queued behind a sleep kernel) at the serve shape,
      the decode_32k shape and phase 2g's four new shapes, each beside one
      ``scaled_dot_product_attention`` call on the same inputs; K9 at the
-     fleet query's launch shape (2^16 x 32 x 128).
+     fleet query's launch shape (2^16 x 32 x 128); the ``jax.random`` draw
+     kernel (``csrc/jax_random.cu``, ``uniform`` and ``normal``) at one
+     client's 110 whisper-tiny leaves and at one 36,472,704-element draw,
+     beside the Threefry-20 bound and the torch tile loop it replaced, run
+     on the card.
 
 Phase 1 also holds K9 (``bit_counts``) bit-equal to its plain version
 (ragged N and F, T up to 256, p in {0, 0.1, 0.5, 1}, boundary uniforms, NaN
@@ -202,6 +206,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -332,6 +337,10 @@ FLEET_FLIP, FLEET_TILE = 0.1, 1 << 16
 FLEET_TOL = 0.01  # the voted CDF against the values' empirical CDF
 # K9's work per vote: compare, two uniform compares, and, add, add
 K9_OPS = 6
+# phase 4: the jax.random draw kernel at whisper-tiny's leaves as the
+# benchmark's train cell sizes them (one client's round uniforms, or the
+# TEE noise) and at one draw of all its parameters
+DRAW_ARCH, DRAW_SEQ, DRAW_N = "whisper-tiny", 64, 36_472_704
 # phase 2j: the cost harness (repro_torch.launch.dryrun) at full width on
 # the production 16 x 16 mesh, one shape per arch (decode_32k: the whole
 # --all sweep takes ~8.5 min of host time) and the recorded skip; then the
@@ -590,6 +599,7 @@ def jax_random_parity(torch) -> None:
     from repro_torch.kernels import prf
     from repro_torch.models.model import build_model
     n = 1 << 24
+    launches = prf._draw.launches
     for seed in (0, 1):
         key = prf.fold_in(prf.PRNGKey(seed), 11)
         t0 = time.perf_counter()
@@ -617,8 +627,14 @@ def jax_random_parity(torch) -> None:
     check(all(torch.equal(b.cpu(), a) for a, b in zip(T.leaves(want),
                                                        T.leaves(got))),
           "the dense init on the card != on the CPU")
+    launched = prf._draw.launches - launches
+    inits = init_draws(cfg)
+    check(launched == 2 + 2 + inits, f"the card's draws launched jax_random "
+          f"{launched} times, want one a draw: 2 normal, randint's 2, the "
+          f"init's {inits}")
     log("  randint (8 x 2048 of 151,936) and the qwen2-reduced init: "
-        "bit-equal on the card and the CPU")
+        f"bit-equal on the card and the CPU ({launched} jax_random "
+        "launches)")
 
 
 def bitagg_parity(torch, g) -> None:
@@ -1313,7 +1329,10 @@ def tier_path(torch, mp, counts: dict, smi: str, digests: dict) -> dict:
     key = prf.PRNGKey(9)
     wstar = prf.normal(key, (cfg.num_features,), device=DEVICE)
 
+    batches = []
+
     def make_client_batch(seed, n):
+        batches.append(seed)
         x = prf.normal(prf.fold_in(key, seed), (n, 4, cfg.num_features),
                        device=DEVICE)
         return {"features": x, "label": (torch.einsum(
@@ -1336,7 +1355,9 @@ def tier_path(torch, mp, counts: dict, smi: str, digests: dict) -> dict:
     sim_s = time.perf_counter() - t0
     counts["tier-simtrain"] = kernel_counts()
     encodes = sum(1 for sp in tel.spans if sp.name == "encode_push")
-    want["tier-simtrain"] = {"quantize_mask_prf": encodes}
+    # jax_random: the init's draws and one normal a client batch
+    want["tier-simtrain"] = {"quantize_mask_prf": encodes,
+                             "jax_random": mlp_init_draws() + len(batches)}
     import math
     first = statistics.mean(res.losses[:max(1, len(res.losses) // 10)])
     check(all(math.isfinite(v) for v in res.losses)
@@ -1375,9 +1396,11 @@ def tier_path(torch, mp, counts: dict, smi: str, digests: dict) -> dict:
     torch.use_deterministic_algorithms(False)
     counts["tier-round"] = kernel_counts()
     Lc = CLASSIFIER_LEAVES
+    # jax_random: a uniform draw before every K6 encode
     want["tier-round"] = {"sq_norms": 2 * TIER_LEAVES * Lc + Lc,
                           "quantize_mask": 3 * CLASSIFIER_COHORT * Lc,
-                          "dequantize": 3 * Lc}
+                          "dequantize": 3 * Lc,
+                          "jax_random": 3 * CLASSIFIER_COHORT * Lc}
     check(trees_equal(torch, outs["sharded"], outs["sharded-masked"]),
           "sharded round: masked != unmasked")
     digests["tier-round"] = tree_digest(outs["sharded"])
@@ -1459,10 +1482,14 @@ def _dist_want(case, world: int) -> dict:
     if case.name == "tier-sketch":
         return {"rotate_quantize_prf": pushes * C}
     if case.name.startswith("tier-round"):
+        # jax_random: every rank draws the inputs (the init's draws and the
+        # features' normal); a uniform before every K6 encode
         Lc = CLASSIFIER_LEAVES
         return {"sq_norms": TIER_LEAVES * Lc,
                 "quantize_mask": CLASSIFIER_COHORT * Lc,
-                "dequantize": world * Lc}
+                "dequantize": world * Lc,
+                "jax_random": world * (mlp_init_draws() + 1)
+                + CLASSIFIER_COHORT * Lc}
     return {"quantize_mask_prf": pushes * C}
 
 
@@ -2290,8 +2317,9 @@ def family_train_path(torch, seed: int, counts: dict, smi: str) -> dict:
         log(f"  {run}: {arch}{f' ({depth} layers)' if depth else ''}, "
             f"{n:,} parameters in {n_leaves} leaves, cohort {cohort}, "
             f"sequence {FAMILY_SEQ}")
+        # jax_random: a uniform draw before every K6 encode
         per_round = dict(sq_norms=n_leaves, quantize_mask=cohort * n_leaves,
-                         dequantize=n_leaves)
+                         dequantize=n_leaves, jax_random=cohort * n_leaves)
         tel = tele.Telemetry(record_spans=True, fence=True)
         _peak_gib(torch, reset=True)
         if how == "cli":
@@ -2352,6 +2380,9 @@ def family_train_path(torch, seed: int, counts: dict, smi: str) -> dict:
                 del masked
         rounds = FAMILY_ROUNDS if how == "cli" else 1
         want[run] = {k: rounds * v for k, v in per_round.items()}
+        if how == "cli":  # the CLI's init, and an audio batch's stub frames
+            want[run]["jax_random"] += init_draws(cfg) + (
+                rounds if cfg.family in ("vlm", "audio") else 0)
         _log_round(tel, run, hist, peak, smi)
         check(_moved(torch, params, new), f"{run}: the params did not move")
         if cfg.family == "audio":
@@ -2987,6 +3018,76 @@ def bitagg_time(torch, launches, smi: str) -> dict:
     return e
 
 
+def _torch_draw(torch, key, n: int, finish):
+    """The draw as the torch ops on the card that ``csrc/jax_random.cu``
+    replaced: ``prf``'s tile loop (``jax_tile`` counters a tile) on a CUDA
+    tensor."""
+    from repro_torch.kernels import prf
+    out = torch.empty((n,), dtype=torch.float32, device="cuda")
+    step = prf.jax_tile("cuda")
+    for s in range(0, n, step):
+        t = min(n, s + step)
+        y0, y1 = prf._jax_lanes(key, s, t, "cuda")
+        out[s:t] = finish(y0 ^ y1)
+    return out
+
+
+def jax_random_times(torch, launched: int, smi: str) -> list:
+    """The draw kernel for ``uniform`` and ``normal``: one client's
+    draws over whisper-tiny's leaves (CUDA events around the launches back
+    to back, and the device time behind a sleep kernel) and one ``DRAW_N``
+    draw (device time), each against the larger of its Threefry-20 integer
+    operations over the issue rate and its bytes written over 3.35 TB/s;
+    the torch tile loop on the card, once, host clock."""
+    import math
+
+    from repro_torch import tree as T
+    from repro_torch.configs import registry
+    from repro_torch.kernels import prf
+    from repro_torch.models.model import param_shapes
+    cfg = registry.get_config(DRAW_ARCH).with_overrides(max_seq_len=DRAW_SEQ)
+    sizes = [math.prod(s) for s in T.flatten(param_shapes(cfg))[1]]
+    check(sum(sizes) == DRAW_N, f"{DRAW_ARCH} has {sum(sizes)} parameters, "
+          f"want {DRAW_N}")
+    keys = prf.split(prf.PRNGKey(13), len(sizes))
+    out = []
+    for name, finish in (("uniform", prf._unit),
+                         ("normal", prf._normal_finish)):
+        draw = getattr(prf, name)
+        got = draw(keys[0], (DRAW_N,), device="cuda")
+        plain_ms, want = _plain_ms(torch, lambda: _torch_draw(
+            torch, keys[0], DRAW_N, finish))
+        check(torch.equal(got, want),
+              f"{name}: the kernel != the torch tile loop on the card")
+        del got, want
+
+        def leaves():
+            for k, n in zip(keys, sizes):
+                draw(k, (n,), device="cuda")
+        launches = prf._draw.launches
+        leaves_ms = _cuda_ms(torch, leaves, 5)
+        check(prf._draw.launches - launches == 5 * len(sizes),
+              f"{name}: {prf._draw.launches - launches} launches for "
+              f"5 x {len(sizes)} draws")
+        leaves_device_ms = _device_ms(torch, leaves, 5)
+        ms = _device_ms(torch, lambda: draw(keys[0], (DRAW_N,),
+                                            device="cuda"), 10)
+        e = _entry("jax_random", "src/repro_torch/kernels/csrc/jax_random.cu",
+                   "none (XLA's jax.random threefry)", launched, ms,
+                   plain_ms, prf.THREEFRY20_OPS * DRAW_N, 4 * DRAW_N,
+                   integer=True)
+        e.update(finish=name, leaves=len(sizes), leaves_ms=leaves_ms,
+                 leaves_device_ms=leaves_device_ms)
+        log(f"  jax_random {name}: one {DRAW_N:,}-element draw {ms:.4f} ms "
+            f"on the device (bound {e['bound_ms']:.4f} ms by "
+            f"{e['bound_by']}; torch tile loop {plain_ms:.1f} ms); "
+            f"{len(sizes)} leaves {leaves_ms:.3f} ms back to back, "
+            f"{leaves_device_ms:.3f} ms on the device; {smi}")
+        out.append(e)
+    empty_cache(torch)
+    return out
+
+
 def _entry(name, source, replaces, launches, ms, plain_ms, ops, nbytes, *,
            max_abs_err=0, library_ms=None, integer=False):
     """A kernel's line; ``ops`` are float operations (an FMA two) against
@@ -3008,6 +3109,34 @@ def reset_counts() -> None:
 def kernel_counts() -> dict:
     from repro_torch import testing
     return testing.kernel_counts()
+
+
+def meta_draws(fn) -> int:
+    """The ``jax.random`` draws ``fn(device)`` makes, counted with
+    ``device="meta"``: the draw kernel's abstract branch records one call a
+    draw, and a CUDA tensor launches the kernel once a non-empty draw."""
+    from repro_torch.launch import analysis
+    with analysis.CostMode() as cm:
+        fn("meta")
+    return int(cm.counts.kernels.get("jax_random", {}).get("calls", 0))
+
+
+def init_draws(cfg) -> int:
+    """The draws of ``build_model(cfg).init``: one a normal (or uniform)
+    initialised leaf of each layer."""
+    from repro_torch.kernels import prf
+    from repro_torch.models.model import build_model
+    return meta_draws(lambda d: build_model(cfg, device=d).init(
+        prf.PRNGKey(0)))
+
+
+def mlp_init_draws() -> int:
+    """The draws of the paper's classifier's init."""
+    from repro_torch.configs import mlp as mlp_cfg
+    from repro_torch.kernels import prf
+    from repro_torch.models.model import build_mlp_classifier
+    return meta_draws(lambda d: build_mlp_classifier(
+        mlp_cfg.CONFIG, device=d).init(prf.PRNGKey(0)))
 
 
 def main() -> int:
@@ -3120,47 +3249,84 @@ def main() -> int:
         }
         round_kernels = ("sq_norms", "scale_accum", "quantize_mask",
                          "dequantize")
+        # the jax.random draw kernel (jax_random) launches once a draw:
+        # deltas come from torch.randn, the noise is 0, the mask graphs
+        # complete and K1 draws its own uniforms, so only the enclave run
+        # draws, a uniform per chunk of each push (its 8-bit stochastic
+        # quantize)
         for path in ("uncompressed", "compressed"):
             want[path]["flash_decode"] = 0
             want[path]["bit_counts"] = 0
+            want[path]["jax_random"] = per_run * (path == "compressed")
             want[path].update(dict.fromkeys(round_kernels, 0))
         zero = dict.fromkeys(want["compressed"], 0)
-        # serving: K10 once per layer per decode step, nothing else
+        # serving: K10 once per layer per decode step; jax_random once per
+        # drawn leaf of the init, and the prompt's randint (2 draws)
+        from repro_torch.configs import registry
+        from repro_torch.launch import serve
+        serve_init = init_draws(registry.get_config("qwen2-1.5b",
+                                                    reduced=False))
         for name, _ in SERVE_RUNS:
             want[f"serve-{name}"] = dict(zero)
             want[f"serve-{name}"]["flash_decode"] = SERVE_LAYERS * SERVE_STEPS
+            want[f"serve-{name}"]["jax_random"] = serve_init + 2
         # the other families: K10 once per attention layer per step (the
         # whisper decoder: a self and a cross attention per layer); none in
-        # mamba2
-        for run, *_, per_step in FAMILY_RUNS:
+        # mamba2; jax_random as qwen2's, plus the stub frontend's normal
+        # (vlm, audio); the drop-free MoE run reuses the moe run's weights
+        # and prompt and draws nothing
+        for run, arch, depth, prompt, *_, per_step in FAMILY_RUNS:
+            cfg, _ = _family_cfg(registry, serve, arch, depth, prompt)
+            draws = 0 if run == "moe-dropfree" else init_draws(cfg) + 2 + (
+                cfg.family in ("vlm", "audio"))
             want[f"serve-{run}"] = dict(zero,
-                                        flash_decode=per_step * FAMILY_STEPS)
+                                        flash_decode=per_step * FAMILY_STEPS,
+                                        jax_random=draws)
         # training, one chunk of 4 clients a round: K3 once per leaf, K6
         # once per client leaf and K7 once per leaf at bits 32, K8 once per
-        # leaf at bits 0
+        # leaf at bits 0; jax_random before every K6 (the client leaf's
+        # uniforms) and, under the CLI's TEE noise, once per leaf a round,
+        # plus the CLI's init
         L, C = TRAIN_LEAVES, TRAIN_COHORT
-        sa_round = dict(zero, sq_norms=L, quantize_mask=C * L, dequantize=L)
+        sa_round = dict(zero, sq_norms=L, quantize_mask=C * L, dequantize=L,
+                        jax_random=C * L)
         want["train-full"] = {k: TRAIN_ROUNDS * v
                               for k, v in sa_round.items()}
+        want["train-full"]["jax_random"] += TRAIN_ROUNDS * L + init_draws(
+            registry.get_config(TRAIN_ARCH, reduced=TRAIN_REDUCED)
+            .with_overrides(max_seq_len=max(TRAIN_SEQ, 64)))
         want["round-bits32"] = sa_round
         want["round-bits0"] = dict(zero, sq_norms=L, scale_accum=L)
         want["round-masked"] = want["round-unmasked"] = sa_round
         Lc = CLASSIFIER_LEAVES
+        mlp_init = mlp_init_draws()
         want["train-classifier"] = dict(
             zero, sq_norms=CLASSIFIER_ROUNDS * CLASSIFIER_CHUNKS * Lc,
             quantize_mask=CLASSIFIER_ROUNDS * CLASSIFIER_COHORT * Lc,
-            dequantize=CLASSIFIER_ROUNDS * Lc)
+            dequantize=CLASSIFIER_ROUNDS * Lc,
+            jax_random=mlp_init + CLASSIFIER_ROUNDS * (CLASSIFIER_COHORT + 1)
+            * Lc)
         # analytics: K9 once per device tile of each CDF vote (the example's
         # percentile query and its minmax factors; the pipeline's minmax
         # factors; the fleet query's 16 tiles), plus the pipeline's rounds:
         # cohort 64 in 4 chunks of 16, 6 leaves
+        # jax_random: the example's mean bits (a uniform, a flip and a coin)
+        # and label ratio (a flip and a coin); the pipeline's label ratio,
+        # init, per round its drop-off uniform, a uniform before every K6
+        # and the TEE noise's once per leaf, and the DP metrics' normal per
+        # statistic; the CDF votes draw through K9's tile loop, not here
+        from repro_torch.core.fl import metrics as fl_metrics
         from repro_torch.examples import paper_pipeline as pp
         pp_chunks = pp.COHORT // pp.CLIENTS_PER_CHUNK
-        want["fa-example"] = dict(zero, bit_counts=2)
+        n_stats = len(fl_metrics.local_eval_stats(torch.zeros(1, 1),
+                                                  torch.zeros(1, 1)))
+        want["fa-example"] = dict(zero, bit_counts=2, jax_random=3 + 2)
         want["fa-pipeline"] = dict(
             zero, bit_counts=1, sq_norms=pp.ROUNDS * pp_chunks * Lc,
             quantize_mask=pp.ROUNDS * pp.COHORT * Lc,
-            dequantize=pp.ROUNDS * Lc)
+            dequantize=pp.ROUNDS * Lc,
+            jax_random=2 + mlp_init + pp.ROUNDS * (1 + (pp.COHORT + 1) * Lc)
+            + n_stats)
         want["fa-fleet"] = dict(zero, bit_counts=FLEET_DEVICES // FLEET_TILE)
         # the tier (phase 2f): counted per run from the runs' own shapes
         # and ledgers (K1 once per chunk of every masked encode, K5 once
@@ -3174,24 +3340,44 @@ def main() -> int:
         # encoded protocol row (its plain branch and secure_aggregate
         # launch nothing); each family round K3 once per leaf, K6 once per
         # client leaf, K7 once per leaf (bits 0: K3 and K8 once per leaf)
+        # (the served checkpoint draws its prompt, 2 draws, and no init;
+        # generate() on the trained params draws nothing)
         for name in ("serve-checkpoint", "serve-trained"):
-            want[name] = dict(zero, flash_decode=SERVE_LAYERS * SERVE_STEPS)
+            want[name] = dict(zero, flash_decode=SERVE_LAYERS * SERVE_STEPS,
+                              jax_random=2 * (name == "serve-checkpoint"))
+        # the protocol: secure_aggregate's stochastic rounding, a uniform a
+        # update on the card (and on the CPU: its twin)
         want["protocol"] = dict(zero, quantize_mask_prf=PROTO_ROWS,
-                                dequantize=2)  # K7: the two flushes' decode
+                                dequantize=2,  # K7: the two flushes' decode
+                                jax_random=SECAGG_UPDATES)
         for path, nonzero in family_want.items():
             want[path] = dict(zero, **nonzero)
-        launches = {}
+        # the plain versions run on no CUDA path, but for the host-side
+        # draws: secure_aggregate's CPU twin, and each random-graph mask
+        # session's permutation (host ints, make_session): the masked
+        # sharded round's one session, once per rank across processes
+        want_plain = {"protocol": {"jax_random": SECAGG_UPDATES},
+                      "tier-round": {"jax_random": 1}}
+        for path in want:
+            m = re.fullmatch(r"dist(\d+)\w+-tier-round-masked", path)
+            if m:
+                want_plain[path] = {"jax_random": int(m.group(1))}
+        launches, bad = {}, []
         for path, got in counts.items():
             runs = {k: v["launches"] for k, v in got.items()}
             plain = {k: v["plain_calls"] for k, v in got.items()}
             log(f"  {path} path: " + json.dumps({"launches": runs,
                                                   "plain_calls": plain}))
-            check(runs == want[path],
-                  f"{path} path launches {runs}, want {want[path]}")
-            check(all(v == 0 for v in plain.values()),
-                  f"plain versions ran on the CUDA path: {plain}")
+            if runs != want[path]:
+                bad.append(f"{path} path launches {runs}, want {want[path]}")
+            no_plain = dict(dict.fromkeys(plain, 0),
+                            **want_plain.get(path, {}))
+            if plain != no_plain:
+                bad.append(f"{path}: plain versions ran on the CUDA path: "
+                           f"{plain}, want {no_plain}")
             for k, v in runs.items():
                 launches[k] = launches.get(k, 0) + v
+        check(not bad, "\n".join(bad))
         check(all(v > 0 for v in launches.values()),
               f"a kernel never launched on the main path: {launches}")
 
@@ -3201,6 +3387,7 @@ def main() -> int:
         entries.append(flash_decode_times(torch, launches["flash_decode"]))
         entries += round_kernel_times(torch, launches, smi)
         entries.append(bitagg_time(torch, launches, smi))
+        entries += jax_random_times(torch, launches["jax_random"], smi)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

@@ -31,10 +31,16 @@ process registry's counter ``prf_host_tiles{rounds=13|20}``.
 a draw of shape ``s`` is the 20-round Threefry of the counter
 ``(i >> 32, i & M32)`` under the key.  ``normal`` rebuilds XLA's f32
 ``erf_inv`` and ``log1p`` (and XLA CPU's ``log``) op by op, with their FMAs,
-in f32 torch ops that give the same bits on the CPU and the card.
+in f32 torch ops.  On the CPU a draw is a host tile loop; on a CUDA tensor
+it is one launch of ``csrc/jax_random.cu``, which computes the same
+Threefry and the same finish element by element and gives the same bits.
+Each launch adds 1 to the process registry's counter
+``prf_device_draws{rounds=20}``.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 import struct
 from typing import Sequence, Tuple
@@ -43,6 +49,7 @@ import torch
 
 from repro_torch.core import telemetry as tele
 from repro_torch.device import is_abstract
+from repro_torch.launch import analysis
 
 DEFAULT_ROUNDS = 13
 JAX_ROUNDS = 20  # JAX's own threefry_2x32 (key derivation)
@@ -242,8 +249,9 @@ def signed_pair_sum(k0: int, k1: int, lo: Sequence[int], hi: Sequence[int],
 
 # --- jax.random draws -----------------------------------------------------
 def jax_tile(device) -> int:
-    """Counters per tile of a ``jax.random`` draw (larger on the card, where
-    each torch op of the tile is one kernel launch)."""
+    """Counters per tile of a host-tiled span of a ``jax.random`` draw
+    (:func:`uniform_span`'s callers; larger on the card, where each torch op
+    of the tile is one kernel launch)."""
     return TILE * 8 if torch.device(device).type == "cuda" else TILE
 
 
@@ -262,22 +270,87 @@ def split(key, num: int = 2) -> list:
             for i in range(int(num))]
 
 
-def _draw(key, shape, device, dtype, finish) -> torch.Tensor:
+# a draw's finish: its mode in csrc/jax_random.cu, and the f32 operations
+# (an FMA two) an element takes along the common branches; the Threefry-20
+# under it is 20 rounds of 3 integer operations (add, rotate, xor) an element
+_BITS, _UNIFORM, _NORMAL = 0, 1, 2
+_FINISH_FLOPS = (0, 2, 60)
+THREEFRY20_OPS = 60
+
+
+@functools.cache
+def _draw_launcher():
+    from repro_torch.kernels import _build
+    fn = _build.load("jax_random").jax_random_launch
+    fn.argtypes = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64,
+                   ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _draw(key, shape, device, mode: int) -> torch.Tensor:
+    """A ``jax.random`` draw of ``shape``, finished by ``mode``.
+
+    Dispatch is by device, never by a flag: a CPU tensor runs the plain
+    version, a host tile loop of int64 torch ops (``plain_calls``, and
+    ``prf_host_tiles{rounds=20}`` a pass); a CUDA tensor launches
+    ``csrc/jax_random.cu`` once (``launches``, and
+    ``prf_device_draws{rounds=20}``) or raises; an abstract tensor records
+    the kernel's operations and bytes and launches nothing."""
     shape = (int(shape),) if isinstance(shape, int) else tuple(shape)
     n = math.prod(shape)
+    dtype = torch.int64 if mode == _BITS else torch.float32
+    # fresh, so aligned for the kernel's 16-byte stores
     out = torch.empty((n,), dtype=dtype, device=device)
-    step = jax_tile(out.device)
-    _count_tiles(-(-n // step), JAX_ROUNDS)
-    for s in range(0, n, step):
-        t = min(n, s + step)
-        y0, y1 = _jax_lanes(key, s, t, out.device)
-        out[s:t] = finish(y0 ^ y1)
+    if is_abstract(out):
+        analysis.record_kernel("jax_random", ops=_FINISH_FLOPS[mode] * n,
+                               int_ops=THREEFRY20_OPS * n,
+                               nbytes=n * out.element_size())
+        return out.reshape(shape)
+    if out.device.type == "cpu":
+        _draw.plain_calls += 1
+        finish = (lambda w: w, _unit, _normal_finish)[mode]
+        _count_tiles(-(-n // TILE), JAX_ROUNDS)
+        for s in range(0, n, TILE):
+            t = min(n, s + TILE)
+            y0, y1 = _jax_lanes(key, s, t, out.device)
+            out[s:t] = finish(y0 ^ y1)
+        return out.reshape(shape)
+    if out.device.type != "cuda":
+        raise ValueError(f"jax.random draws run on the CPU or a CUDA device, "
+                         f"got {out.device}")
+    if n:
+        k0, k1 = key_words(key)
+        status = _draw_launcher()(
+            k0, k1, n, mode, out.data_ptr(),
+            torch.cuda.current_stream(out.device).cuda_stream)
+        if status != 0:
+            raise RuntimeError(f"jax_random kernel launch failed: CUDA error "
+                               f"{status}")
+        _draw.launches += 1
+        tele.get_default().count("prf_device_draws", 1, rounds=JAX_ROUNDS)
     return out.reshape(shape)
+
+
+_draw.launches = 0
+_draw.plain_calls = 0
+
+
+def reset_counts() -> None:
+    _draw.launches = 0
+    _draw.plain_calls = 0
+
+
+def counts() -> dict:
+    """The draw kernel's launches and plain-version calls, under the
+    kernel's name."""
+    return {"jax_random": {"launches": _draw.launches,
+                           "plain_calls": _draw.plain_calls}}
 
 
 def random_bits(key, shape, *, device=None) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32) as int64 words."""
-    return _draw(key, shape, device, torch.int64, lambda w: w)
+    return _draw(key, shape, device, _BITS)
 
 
 def _unit(w: torch.Tensor) -> torch.Tensor:
@@ -288,7 +361,7 @@ def _unit(w: torch.Tensor) -> torch.Tensor:
 
 def uniform(key, shape, *, device=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape)``: f32 in [0, 1), bit-equal."""
-    return _draw(key, shape, device, torch.float32, _unit)
+    return _draw(key, shape, device, _UNIFORM)
 
 
 def uniform_span(key, start: int, stop: int, *, device=None) -> torch.Tensor:
@@ -446,8 +519,6 @@ def log1p_f32(x: torch.Tensor) -> torch.Tensor:
     q = _horner(x, _LOG1P_Q)
     p = _horner(x, _LOG1P_P)
     out = x + ((x * x2) * _div_f32(p, q) - x2 * 0.5)
-    if is_abstract(x):  # the cost harness: no data to pick the branch by
-        return out
     big = (x.abs() >= _LOG1P_SMALL).nonzero(as_tuple=True)
     out[big] = log_f32(x[big] + 1.0)
     return out
@@ -461,12 +532,19 @@ def erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
     is computed only where it is taken."""
     w = -log1p_f32(x * -x)
     out = _horner(w - 2.5, _ERFINV_LT5) * x
-    if is_abstract(w):  # the cost harness: no data to pick the branch by
-        return out
     tail = (w >= 5.0).nonzero(as_tuple=True)
     wt = sqrt_f32(w[tail]) - 3.0
     out[tail] = _horner(wt, _ERFINV_GE5) * x[tail]
     return torch.where(x.abs() == 1.0, x * math.inf, out)
+
+
+def _normal_finish(w: torch.Tensor) -> torch.Tensor:
+    """Threefry words -> ``normal``'s f32 values (a function of ``w >> 9``
+    alone)."""
+    lo = _f32(_NORMAL_LO, w)
+    span = _f32(1.0, w) - lo
+    u = torch.maximum(lo, _unit(w) * span + lo)
+    return erf_inv_f32(u) * _f32(_SQRT2_F32, w)
 
 
 def normal(key, shape, *, device=None) -> torch.Tensor:
@@ -474,12 +552,7 @@ def normal(key, shape, *, device=None) -> torch.Tensor:
     ``f32(sqrt 2) * erf_inv(u)`` over JAX's uniforms on
     ``(nextafter(-1, 0), 1)``, with XLA's own f32 ``erf_inv`` and ``log1p``
     rebuilt op by op (no library ``log``, ``log1p`` or ``erfinv``)."""
-    def finish(w):
-        lo = _f32(_NORMAL_LO, w)
-        span = _f32(1.0, w) - lo
-        u = torch.maximum(lo, _unit(w) * span + lo)
-        return erf_inv_f32(u) * _f32(_SQRT2_F32, w)
-    return _draw(key, shape, device, torch.float32, finish)
+    return _draw(key, shape, device, _NORMAL)
 
 
 def randint(key, shape, minval: int, maxval: int, *,

@@ -152,18 +152,22 @@ class Counts:
 _ACTIVE: List["CostMode"] = []
 
 
-def record_kernel(name: str, *, ops: float, nbytes: float) -> None:
+def record_kernel(name: str, *, ops: float, nbytes: float,
+                  int_ops: float = 0.0) -> None:
     """A hand-written kernel's wrapper, called on abstract tensors, adds its
-    float operations and bytes to the innermost active :class:`CostMode`;
-    outside one it does nothing."""
+    float operations (``ops``), integer operations and bytes to the
+    innermost active :class:`CostMode`; outside one it does nothing."""
     if not _ACTIVE:
         return
     c = _ACTIVE[-1].counts
     c.float_ops += ops
+    c.int_ops += int_ops
     c.bytes += nbytes
-    e = c.kernels.setdefault(name, {"calls": 0.0, "ops": 0.0, "bytes": 0.0})
+    e = c.kernels.setdefault(name, {"calls": 0.0, "ops": 0.0,
+                                    "int_ops": 0.0, "bytes": 0.0})
     e["calls"] += 1
     e["ops"] += ops
+    e["int_ops"] += int_ops
     e["bytes"] += nbytes
 
 

@@ -132,14 +132,16 @@ def classifier_round_inputs(cohort: int, seed: int, device,
 
 def kernel_counts() -> Dict[str, Dict[str, int]]:
     """Launches and plain-version calls of every kernel wrapper."""
-    from repro_torch.kernels import bitagg, dp_clip, flash_decode, secure_agg
+    from repro_torch.kernels import (bitagg, dp_clip, flash_decode, prf,
+                                     secure_agg)
     return {**secure_agg.counts(), **flash_decode.counts(),
-            **dp_clip.counts(), **bitagg.counts()}
+            **dp_clip.counts(), **bitagg.counts(), **prf.counts()}
 
 
 def reset_kernel_counts() -> None:
-    from repro_torch.kernels import bitagg, dp_clip, flash_decode, secure_agg
-    for m in (secure_agg, flash_decode, dp_clip, bitagg):
+    from repro_torch.kernels import (bitagg, dp_clip, flash_decode, prf,
+                                     secure_agg)
+    for m in (secure_agg, flash_decode, dp_clip, bitagg, prf):
         m.reset_counts()
 
 

@@ -186,6 +186,102 @@ def test_cuda_normal_randint_and_init_match_the_cpu(cuda):
         assert torch.equal(b.cpu(), a)
 
 
+# jax.random draws through csrc/jax_random.cu: small and odd lengths on
+# several keys; whisper-tiny's largest leaf and a length past 2^25
+DRAW_KEYS = tuple(prf.fold_in(prf.PRNGKey(s), 11) for s in (0, 7, 0x5A5E))
+DRAW_SMALL = (1, 3, 4097, (1 << 16) + 1)
+DRAW_LARGE = (51_865 * 384, (1 << 25) + 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["random_bits", "uniform", "normal"])
+def test_cuda_jax_draw_matches_the_cpu_path(cuda, name):
+    """One launch a draw, bit-equal to the CPU's tile loop on every key and
+    length; normal's draws cross log1p's |u| = sqrt(2) - 1 edge and
+    erf_inv's w = 5 edge (|z| ~0.545 and ~2.93) on each key."""
+    draw = getattr(prf, name)
+    for key in DRAW_KEYS:
+        for n in DRAW_SMALL:
+            launches = prf._draw.launches
+            got = draw(key, (n,), device=cuda)
+            assert prf._draw.launches == launches + 1
+            want = draw(key, (n,))
+            assert got.dtype == want.dtype
+            assert torch.equal(got.cpu(), want), (key, n)
+        if name == "normal":
+            z = want.abs()
+            for edge in (0.545, 2.93):
+                assert bool((z < 0.98 * edge).any())
+                assert bool((z > 1.02 * edge).any())
+
+
+@pytest.mark.cuda
+def test_cuda_jax_draws_match_the_cpu_at_full_size(cuda):
+    """At whisper-tiny's largest leaf and past 2^25 elements: the bits
+    against the CPU's, uniform and normal against the CPU's finish of those
+    bits (normal's is a function of ``w >> 9`` alone, tabulated over all
+    2^23 values, itself checked against a CPU draw)."""
+    units = torch.arange(1 << 23, dtype=torch.int64) << 9
+    table = prf._normal_finish(units)
+    key = DRAW_KEYS[1]
+    bits = prf.random_bits(key, (4097,))
+    assert torch.equal(table[bits >> 9], prf.normal(key, (4097,)))
+    for n in DRAW_LARGE:
+        bits = prf.random_bits(key, (n,))
+        assert torch.equal(prf.random_bits(key, (n,), device=cuda).cpu(),
+                           bits)
+        assert torch.equal(prf.uniform(key, (n,), device=cuda).cpu(),
+                           prf._unit(bits))
+        assert torch.equal(prf.normal(key, (n,), device=cuda).cpu(),
+                           table[bits >> 9])
+
+
+@pytest.mark.cuda
+def test_cuda_randint_and_permutation_go_through_the_draw_kernel(cuda):
+    """randint draws two words a element (two launches), permutation one
+    word a sort round; both bit-equal to the CPU's."""
+    key = DRAW_KEYS[2]
+    launches = prf._draw.launches
+    got = prf.randint(key, (8, 2048), 0, 151_936, device=cuda)
+    assert prf._draw.launches == launches + 2
+    assert torch.equal(got.cpu(), prf.randint(key, (8, 2048), 0, 151_936))
+    n = 5000  # past 1625: two sort rounds
+    launches = prf._draw.launches
+    got = prf.permutation(key, n, device=cuda)
+    assert prf._draw.launches == launches + 2
+    assert torch.equal(got.cpu(), prf.permutation(key, n))
+
+
+@pytest.mark.cuda
+def test_cuda_jax_draw_runs_no_torch_op(cuda):
+    """A draw on the card is its output's allocation and one launch: no
+    int64 torch op, no host tile, one prf_device_draws."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.core import telemetry as tele
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    tel = tele.Telemetry(record_spans=False)
+    prev = tele.set_default(tel)
+    try:
+        with Ops() as ops:
+            prf.normal(DRAW_KEYS[0], (3, 4097), device=cuda)
+    finally:
+        tele.set_default(prev)
+    assert set(ops.names) <= {"empty", "view", "_unsafe_view", "reshape"}, \
+        ops.names
+    assert tel.value("prf_device_draws", rounds=20) == 1
+    assert tel.total("prf_host_tiles") == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_decode_matches_plain_version(cuda, dtype):

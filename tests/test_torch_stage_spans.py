@@ -8,6 +8,8 @@ tile counter, and the span clock's anchor on a profiler trace.
   engine span's ``round`` (and a push's ``slot``);
 - a registry that records no spans records none and changes no bit;
 - ``prf_host_tiles{rounds}`` counts each pass of the three host tile loops;
+  a ``jax.random`` draw runs its loop on the CPU only (a meta or fake draw
+  records the ``jax_random`` kernel's cost instead);
 - ``Telemetry.epoch_unix_ns`` puts a span on ``torch.profiler``'s clock.
 """
 import time
@@ -182,6 +184,73 @@ def test_prf_host_tiles_counts_jax_draw_tiles(monkeypatch, registry, shape):
     assert registry.value("prf_host_tiles", rounds=20) == -(-n // TILE) \
         == len(calls)
     assert registry.value("prf_host_tiles", rounds=13) == 0
+
+
+DRAWS = [("random_bits", torch.int64, 0), ("uniform", torch.float32, 2),
+         ("normal", torch.float32, 60)]
+
+
+@pytest.mark.parametrize("name,dtype,_", DRAWS)
+def test_cpu_jax_draw_takes_the_plain_path(registry, name, dtype, _):
+    """A CPU draw runs the host tile loop: ``plain_calls`` and
+    ``prf_host_tiles{rounds=20}`` count it, and no kernel launches."""
+    launches, plain = prf._draw.launches, prf._draw.plain_calls
+    x = getattr(prf, name)(prf.PRNGKey(5), (3, 7))
+    assert (x.shape, x.dtype, x.device.type) == ((3, 7), dtype, "cpu")
+    assert prf._draw.plain_calls == plain + 1
+    assert prf._draw.launches == launches
+    assert registry.value("prf_host_tiles", rounds=20) == 1
+    assert registry.total("prf_device_draws") == 0
+
+
+def test_kernel_counts_hold_the_draw_kernel(registry):
+    """``testing.kernel_counts`` reports the draw kernel beside the other
+    wrappers (a CPU draw as a plain call), and ``reset_kernel_counts``
+    zeroes it."""
+    from repro_torch import testing
+    testing.reset_kernel_counts()
+    prf.normal(prf.PRNGKey(1), (5,))
+    prf.randint(prf.PRNGKey(2), (3,), 0, 10)
+    assert testing.kernel_counts()["jax_random"] == {"launches": 0,
+                                                     "plain_calls": 3}
+    testing.reset_kernel_counts()
+    assert testing.kernel_counts()["jax_random"] == {"launches": 0,
+                                                     "plain_calls": 0}
+
+
+@pytest.mark.parametrize("name,dtype,flops", DRAWS)
+def test_abstract_jax_draw_records_the_kernel(registry, name, dtype, flops):
+    """A meta draw records ``jax_random``'s operations (the Threefry-20's
+    integer ones and the finish's float ones) and bytes, returns its shape
+    and dtype, and neither launches nor runs a host tile."""
+    from repro_torch.launch import analysis
+    launches, plain = prf._draw.launches, prf._draw.plain_calls
+    with analysis.CostMode() as cm:
+        x = getattr(prf, name)(prf.PRNGKey(5), (3, 7), device="meta")
+    assert (x.shape, x.dtype, x.is_meta) == ((3, 7), dtype, True)
+    size = torch.empty((), dtype=dtype).element_size()
+    assert cm.counts.kernels["jax_random"] == {
+        "calls": 1.0, "ops": 21.0 * flops, "int_ops": 21.0 * 60,
+        "bytes": 21.0 * size}
+    assert (cm.counts.float_ops, cm.counts.int_ops, cm.counts.bytes) == (
+        21.0 * flops, 21.0 * 60, 21.0 * size)
+    assert (prf._draw.launches, prf._draw.plain_calls) == (launches, plain)
+    assert registry.total("prf_host_tiles") == 0
+    assert registry.total("prf_device_draws") == 0
+
+
+def test_fake_jax_draw_records_the_kernel(registry):
+    """Under ``FakeTensorMode`` (the cost harness's tensors) a draw is
+    abstract too: the kernel's cost, no launch, no host tile."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import analysis
+    with analysis.CostMode() as cm, FakeTensorMode():
+        x = prf.randint(prf.PRNGKey(5), (4, 16), 0, 100)
+    assert x.shape == (4, 16)
+    k = cm.counts.kernels["jax_random"]
+    assert k["calls"] == 2.0  # two halves
+    assert k["int_ops"] == 2 * 64 * prf.THREEFRY20_OPS
+    assert registry.total("prf_host_tiles") == 0
 
 
 def test_span_clock_places_a_span_on_the_profiler_clock():
