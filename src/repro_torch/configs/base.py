@@ -99,6 +99,18 @@ class ModelConfig:
 
     citation: str = ""
 
+    # Defaults of the fields :class:`GraniteHybridConfig` adds.  Class
+    # attributes, not fields: every other configuration's fields stay the
+    # reference's, and every other configuration computes as it did.
+    embedding_multiplier = 1.0  # token embeddings times this
+    residual_multiplier = 1.0  # each block's branch times this
+    attention_multiplier = 0.0  # softmax scale; 0 -> head_dim ** -0.5
+    logits_scaling = 1.0  # logits divided by this
+    shared_d_ff = 0  # shared experts' hidden dim; 0 -> moe_d_ff
+    norm_eps = 1e-6
+    experts_held = 0  # routed experts held here; 0 -> all num_experts
+    expert_offset = 0  # the first held expert's index
+
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // max(self.num_heads, 1))
@@ -134,6 +146,15 @@ class ModelConfig:
         return tuple(kinds)
 
     @property
+    def held_experts(self) -> int:
+        """Routed experts this device holds of each MoE layer."""
+        return self.experts_held or self.num_experts
+
+    @property
+    def shared_width(self) -> int:
+        return self.shared_d_ff or self.moe_d_ff
+
+    @property
     def d_inner(self) -> int:
         """SSM inner width."""
         return self.ssm_expand * self.d_model
@@ -152,12 +173,11 @@ class ModelConfig:
             if kind in ("attn", "local_attn"):
                 n += self._attn_params() + self._mlp_params(f)
             elif kind == "moe":
-                n += self._attn_params()
-                n += self.num_experts * self._mlp_params(self.moe_d_ff)
-                n += self.num_shared_experts * self._mlp_params(self.moe_d_ff)
-                n += d * self.num_experts  # router
+                n += self._attn_params() + self._moe_params()
             elif kind == "ssm":
                 n += self._ssm_params()
+            elif kind == "ssm_moe":
+                n += self._ssm_params() + self._moe_params()
             elif kind == "rglru":
                 n += self._rglru_params() + self._mlp_params(f)
             n += 2 * d  # norms
@@ -175,10 +195,12 @@ class ModelConfig:
         d = self.d_model
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         for kind in self.layer_kinds:
-            if kind == "moe":
-                n += self._attn_params()
+            if kind in ("moe", "ssm_moe"):
+                n += (self._attn_params() if kind == "moe"
+                      else self._ssm_params())
                 n += self.experts_per_token * self._mlp_params(self.moe_d_ff)
-                n += self.num_shared_experts * self._mlp_params(self.moe_d_ff)
+                n += self.num_shared_experts * self._mlp_params(
+                    self.shared_width)
                 n += d * self.num_experts
             else:
                 n += self._attn_params() + self._mlp_params(self.d_ff)
@@ -191,6 +213,12 @@ class ModelConfig:
         if self.qkv_bias:
             n += (h + 2 * kv) * hd
         return n
+
+    def _moe_params(self) -> int:
+        """The held experts, the shared experts and the router."""
+        return (self.held_experts * self._mlp_params(self.moe_d_ff)
+                + self.num_shared_experts * self._mlp_params(self.shared_width)
+                + self.d_model * self.num_experts)
 
     def _mlp_params(self, f: int) -> int:
         if f == 0:
@@ -211,6 +239,41 @@ class ModelConfig:
         d, r = self.d_model, self.rglru_width or self.d_model
         # two input branches + conv + gates (W_a, W_x) + out proj + Lambda
         return 2 * d * r + self.rglru_conv_width * r + 2 * r * r + r * d + 2 * r
+
+
+@dataclass(frozen=True)
+class GraniteHybridConfig(ModelConfig):
+    """A ``ModelConfig`` with the settings of IBM's Granite-4.0-H stacks:
+    µP multipliers (embeddings, each residual branch, the softmax scale,
+    the logits), the RMSNorm epsilon, a shared expert of its own width, and
+    the expert share of expert parallelism.
+
+    The share: each MoE layer's router keeps all ``num_experts`` outputs
+    and its top-k, this device holds routed experts ``[expert_offset,
+    expert_offset + experts_held)``, and the layer computes only the
+    (token, slot) pairs routed to them, drop-free (``moe_dispatch``
+    "ragged"); what absent experts would add is left out.  The block kind
+    ``ssm_moe`` is a Mamba-2 mixer followed by an MoE FFN."""
+
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    logits_scaling: float = 1.0
+    shared_d_ff: int = 0
+    norm_eps: float = 1e-6
+    experts_held: int = 0
+    expert_offset: int = 0
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.block_pattern is not None:  # a JSON override gives a list
+            object.__setattr__(self, "block_pattern",
+                               tuple(self.block_pattern))
+        if self.expert_offset + self.held_experts > self.num_experts:
+            raise ValueError(
+                f"{self.name}: experts [{self.expert_offset}, "
+                f"{self.expert_offset + self.held_experts}) are not all "
+                f"among the router's {self.num_experts}")
 
 
 @dataclass(frozen=True)

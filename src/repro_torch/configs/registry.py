@@ -32,6 +32,12 @@ _ARCH_MODULES: Dict[str, str] = {
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 
+# Architectures of the port alone (the reference has no such config);
+# ``get_config`` resolves them, ``ARCH_IDS`` stays the reference's.
+_PORT_ONLY_MODULES: Dict[str, str] = {
+    "granite-4.0-h-small": "repro_torch.configs.granite_4_0_h_small",
+}
+
 # Sliding window of the long_500k decode variant of full-attention archs.
 LONG_CONTEXT_WINDOW = 4096
 
@@ -52,7 +58,8 @@ class TensorSpec(NamedTuple):
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
-    mod = importlib.import_module(_ARCH_MODULES[arch])
+    mod = importlib.import_module(
+        _ARCH_MODULES.get(arch) or _PORT_ONLY_MODULES[arch])
     return mod.reduced() if reduced else mod.CONFIG
 
 

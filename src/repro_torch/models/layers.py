@@ -64,7 +64,8 @@ def init_norm(cfg, d: int, device=None):
     return p
 
 
-def apply_norm(cfg, p, x, eps: float = 1e-6):
+def apply_norm(cfg, p, x):
+    eps = cfg.norm_eps
     xf = x.float()
     if cfg.norm == "layernorm":
         mu = xf.mean(-1, keepdim=True)
@@ -184,7 +185,7 @@ def attention(cfg, p, x, positions, *, causal: bool = True,
         k, v, k_positions = kv_override
     else:
         k_positions = positions
-    q = q * cfg.head_dim ** -0.5
+    q = q * (cfg.attention_multiplier or cfg.head_dim ** -0.5)
     if cfg.attn_seq_shard:
         # context parallelism: queries split over `model` (K/V whole), so
         # attention splits even where the heads do not divide the axis
@@ -258,7 +259,7 @@ def _cross_decode(cfg, p, x, cross_kv):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
-    q = q * cfg.head_dim ** -0.5
+    q = q * (cfg.attention_multiplier or cfg.head_dim ** -0.5)
     S = k.shape[1]
     slot_pos = torch.arange(S, dtype=torch.int32, device=x.device)
     out = K.flash_decode(q[:, 0].float().contiguous(), k, v, slot_pos, S - 1)
@@ -284,7 +285,7 @@ def attention_decode(cfg, p, x, cache, pos: int, *,
         return _cross_decode(cfg, p, x, cross_kv), cache
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _qkv(cfg, p, x, positions, cfg.pos_emb == "rope")
-    q = q * cfg.head_dim ** -0.5
+    q = q * (cfg.attention_multiplier or cfg.head_dim ** -0.5)
 
     W = cache["k"].shape[1]
     slot = pos if window is None else pos % W  # ring buffer when windowed
@@ -389,13 +390,19 @@ def embed_tokens(cfg, p, tokens, dtype):
     x = p["embed"].to(dtype)[tokens]
     if cfg.family == "hybrid":  # gemma lineage scales embeddings
         x = x * math.sqrt(cfg.d_model)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     return x
 
 
 def unembed(cfg, p, x):
     if cfg.tie_embeddings:
-        return x @ p["embed"].to(x.dtype).T
-    return x @ p["unembed"].to(x.dtype)
+        logits = x @ p["embed"].to(x.dtype).T
+    else:
+        logits = x @ p["unembed"].to(x.dtype)
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return logits
 
 
 def sincos_positions(seq_len: int, d_model: int, device=None):

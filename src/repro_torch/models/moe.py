@@ -21,6 +21,14 @@ what can be occupied: an expert takes at most one pair per token, so at
 most ``T``, and where the buffers would pass ``BUFFER_ELEMS`` values the
 largest expert load is read back from the device (one synchronisation).
 Empty slots hold zero rows in the reference and contribute nothing.
+
+An expert share (``cfg.experts_held``, expert parallelism's layer on one
+device) routes over every router output but holds experts ``[off, off +
+held)``: its pairs are found by one stable sort by expert id, where they
+are a contiguous run, and only they are gathered, run and combined
+(drop-free); the others add nothing here.  While the default registry
+records spans, the share counts ``moe_pairs{held=0|1}`` and the largest
+held expert's load ``moe_held_load_max`` from the counts it reads back.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from typing import Tuple
 import torch
 
 from repro_torch import tree as T
+from repro_torch.core import telemetry as tele
 from repro_torch.device import is_abstract
 from repro_torch.kernels import prf
 from repro_torch.models import layers as L
@@ -43,26 +52,28 @@ def moe_shapes(cfg, lead=()):
     d, e = cfg.d_model, cfg.num_experts
     lead = tuple(lead)
     p = {"router": torch.Size(lead + (d, e)),
-         "experts": L.mlp_shapes(cfg, cfg.moe_d_ff, lead + (e,))}
+         "experts": L.mlp_shapes(cfg, cfg.moe_d_ff,
+                                 lead + (cfg.held_experts,))}
     if cfg.num_shared_experts > 0:
-        p["shared"] = L.mlp_shapes(cfg, cfg.moe_d_ff,
+        p["shared"] = L.mlp_shapes(cfg, cfg.shared_width,
                                    lead + (cfg.num_shared_experts,))
     return p
 
 
 def init_moe(key, cfg, device=None):
     """``split(key, 3)``: the router, the experts (``split`` into one key
-    per expert, stacked as the reference's ``vmap`` stacks them) and the
-    shared experts (likewise)."""
+    per expert, stacked as the reference's ``vmap`` stacks them; a share
+    takes its experts' keys) and the shared experts (likewise)."""
     d, e = cfg.d_model, cfg.num_experts
     k_router, k_experts, k_shared = prf.split(key, 3)
+    off = cfg.expert_offset
     p = {"router": L.normal_over(k_router, (d, e), math.sqrt(d), device),
          "experts": T.stacked(
              lambda k: L.init_mlp(k, cfg, cfg.moe_d_ff, device),
-             prf.split(k_experts, e))}
+             prf.split(k_experts, e)[off:off + cfg.held_experts])}
     if cfg.num_shared_experts > 0:
         p["shared"] = T.stacked(
-            lambda k: L.init_mlp(k, cfg, cfg.moe_d_ff, device),
+            lambda k: L.init_mlp(k, cfg, cfg.shared_width, device),
             prf.split(k_shared, cfg.num_shared_experts))
     return p
 
@@ -137,6 +148,40 @@ def _dispatch(cfg, p, x_flat, gates, idx, C: int):
     return torch.einsum("tkd,tk->td", y_pairs, gates)
 
 
+def _dispatch_held(cfg, p, x_flat, gates, idx):
+    """The expert share: every pair routed to a held expert through its
+    FFN, drop-free, combined by gate; the other pairs add nothing.  One
+    read-back (the per-expert counts) sizes the buffers."""
+    n_tok, d = x_flat.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    held, off = cfg.held_experts, cfg.expert_offset
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)  # expert-major, token-minor
+    counts = _bincount(flat, E).tolist()
+    start = sum(counts[:off])
+    load = counts[off:off + held]
+    n_held = sum(load)
+    tel = tele.get_default()
+    if tel.record_spans and torch._C._current_graph_task_id() == -1:
+        tel.count("moe_pairs", n_held, held=1)
+        tel.count("moe_pairs", flat.numel() - n_held, held=0)
+        tel.count("moe_held_load_max", max(load))
+    pairs = order[start:start + n_held]
+    local = flat[pairs] - off
+    starts = torch.tensor([sum(load[:e]) for e in range(held)],
+                          device=x_flat.device)
+    cap = max(max(load), 1)
+    slot = local * cap + torch.arange(n_held, device=x_flat.device) \
+        - starts[local]
+    buf = x_flat.new_zeros((held * cap, d))
+    buf[slot] = x_flat[pairs // k]
+    y_experts = L.apply_mlp(cfg, p["experts"], buf.view(held, cap, d))
+    del buf
+    y_pairs = y_experts.reshape(held * cap, d)[slot] \
+        * gates.reshape(-1)[pairs, None]
+    return x_flat.new_zeros((n_tok, d)).index_add(0, pairs // k, y_pairs)
+
+
 def apply_moe(cfg, p, x, *, use_ragged: bool = None):
     """x: (B, S, d) -> (y, aux_loss)."""
     if use_ragged is None:
@@ -148,9 +193,15 @@ def apply_moe(cfg, p, x, *, use_ragged: bool = None):
     n_tok = B * S
     x_flat = x.reshape(n_tok, d)
     gates, idx, aux = route(cfg, p, x_flat)
-    # ragged: no capacity, so every pair is kept
-    C = n_tok if ragged else capacity(cfg, n_tok)
-    y = _dispatch(cfg, p, x_flat, gates, idx, C)
+    if cfg.experts_held:
+        if not ragged:
+            raise ValueError("an expert share dispatches drop-free: set "
+                             "moe_dispatch='ragged'")
+        y = _dispatch_held(cfg, p, x_flat, gates, idx)
+    else:
+        # ragged: no capacity, so every pair is kept
+        C = n_tok if ragged else capacity(cfg, n_tok)
+        y = _dispatch(cfg, p, x_flat, gates, idx, C)
     if cfg.num_shared_experts > 0:
         y = y + L.apply_mlp(cfg, p["shared"], x_flat).sum(0)
     return y.reshape(B, S, d), aux * cfg.router_aux_weight

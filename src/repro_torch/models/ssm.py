@@ -173,7 +173,7 @@ def apply_mamba2(cfg, p, x, *, return_cache: bool = False):
     y, final_state = ssd_chunked(xh, dtv, A, Bm, Cm, cfg.ssm_chunk)
     y = y + xh * p["D"].to(dt_)[None, None, :, None]
     y = y.reshape(Bs, S, di)
-    y = L.rmsnorm_gated(y, z, p["norm_scale"])
+    y = L.rmsnorm_gated(y, z, p["norm_scale"], cfg.norm_eps)
     out = y @ p["out_proj"].to(dt_)
     if return_cache:
         K = cfg.ssm_conv_width
@@ -223,6 +223,6 @@ def decode_mamba2(cfg, p, x, cache):
     cache["ssm"].copy_(state)
     y = torch.einsum("bhps,bs->bhp", state, Cm) + xs * p["D"][None, :, None]
     y = y.reshape(-1, di).to(dt_)
-    y = L.rmsnorm_gated(y, z, p["norm_scale"])
+    y = L.rmsnorm_gated(y, z, p["norm_scale"], cfg.norm_eps)
     y = y @ p["out_proj"].to(dt_)
     return y[:, None], cache

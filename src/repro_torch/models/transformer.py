@@ -1,7 +1,13 @@
 """Decoder stacks: block init/apply/prefill/decode and the layer-stack layout.
 
 Port of ``repro.models.transformer`` for every block kind: ``attn``,
-``local_attn``, ``moe``, ``ssm`` and ``rglru``.
+``local_attn``, ``moe``, ``ssm`` and ``rglru``; and the port's own
+``ssm_moe`` (Granite-4.0-H: a Mamba-2 mixer, then an MoE FFN), which
+trains but does not serve.  Each block's branches are scaled by
+``cfg.residual_multiplier`` where it is not 1.  While the default registry
+records spans, each Mamba-2 mixer's and each MoE FFN's forward pass is a
+fenced ``ssm`` / ``moe`` span labelled with its ``layer`` (not the
+recomputation of a checkpointed block in the backward pass).
 
 The stack layout is the reference's: a homogeneous stack deeper than one
 layer (``_is_scannable``) keeps its layers' parameters and caches stacked
@@ -19,6 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as T
+from repro_torch.core import telemetry as tele
 from repro_torch.kernels import prf
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -53,6 +60,11 @@ def block_shapes(cfg, kind: str, lead=()) -> Dict:
     if kind == "ssm":
         return {"norm1": L.norm_shapes(cfg, d, lead),
                 "mamba": S.mamba2_shapes(cfg, lead)}
+    if kind == "ssm_moe":
+        return {"norm1": L.norm_shapes(cfg, d, lead),
+                "mamba": S.mamba2_shapes(cfg, lead),
+                "norm2": L.norm_shapes(cfg, d, lead),
+                "moe": M.moe_shapes(cfg, lead)}
     if kind == "rglru":
         return {"norm1": L.norm_shapes(cfg, d, lead),
                 "rec": R.rglru_shapes(cfg, lead),
@@ -80,6 +92,11 @@ def init_block(key, cfg, kind: str, device=None):
     if kind == "ssm":
         return {"norm1": L.init_norm(cfg, d, device),
                 "mamba": S.init_mamba2(k1, cfg, device)}
+    if kind == "ssm_moe":
+        return {"norm1": L.init_norm(cfg, d, device),
+                "mamba": S.init_mamba2(k1, cfg, device),
+                "norm2": L.init_norm(cfg, d, device),
+                "moe": M.init_moe(k2, cfg, device)}
     if kind == "rglru":
         return {"norm1": L.init_norm(cfg, d, device),
                 "rec": R.init_rglru_block(k1, cfg, device),
@@ -88,28 +105,59 @@ def init_block(key, cfg, kind: str, device=None):
     raise ValueError(kind)
 
 
-def apply_block(cfg, p, x, positions, kind: str, *, use_ragged_moe=None):
-    """(B,S,d) -> ((B,S,d), aux_loss)."""
+def _add(cfg, x, branch):
+    """The residual add, the branch times ``cfg.residual_multiplier``."""
+    r = cfg.residual_multiplier
+    return x + branch if r == 1.0 else x + r * branch
+
+
+def _forward_span(name: str, layer):
+    """A fenced span of one layer's forward pass, while the default
+    registry records spans, outside the backward pass."""
+    tel = tele.get_default()
+    if not tel.record_spans or torch._C._current_graph_task_id() != -1:
+        return tele._NULL_SPAN
+    return tel.span(name, layer=layer)
+
+
+def _moe(cfg, p, x, use_ragged, layer):
+    with _forward_span("moe", layer) as sp:
+        y, aux = M.apply_moe(cfg, p["moe"], L.apply_norm(cfg, p["norm2"], x),
+                             use_ragged=use_ragged)
+        sp.fence(y)
+    return _add(cfg, x, y), aux
+
+
+def _mamba(cfg, p, x, layer):
+    with _forward_span("ssm", layer) as sp:
+        y = S.apply_mamba2(cfg, p["mamba"], L.apply_norm(cfg, p["norm1"], x))
+        sp.fence(y)
+    return _add(cfg, x, y)
+
+
+def apply_block(cfg, p, x, positions, kind: str, *, use_ragged_moe=None,
+                layer=None):
+    """(B,S,d) -> ((B,S,d), aux_loss); ``layer`` labels the spans."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in _ATTN_KINDS:
         h = L.attention(cfg, p["attn"], L.apply_norm(cfg, p["norm1"], x),
                         positions, window=_window(cfg, kind))
-        x = x + h
+        x = _add(cfg, x, h)
         if kind == "moe":
-            y, aux = M.apply_moe(cfg, p["moe"],
-                                 L.apply_norm(cfg, p["norm2"], x),
-                                 use_ragged=use_ragged_moe)
-            x = x + y
+            x, aux = _moe(cfg, p, x, use_ragged_moe, layer)
         else:
-            x = x + L.apply_mlp(cfg, p["mlp"],
-                                L.apply_norm(cfg, p["norm2"], x))
+            x = _add(cfg, x, L.apply_mlp(cfg, p["mlp"],
+                                         L.apply_norm(cfg, p["norm2"], x)))
     elif kind == "ssm":
-        x = x + S.apply_mamba2(cfg, p["mamba"],
-                               L.apply_norm(cfg, p["norm1"], x))
+        x = _mamba(cfg, p, x, layer)
+    elif kind == "ssm_moe":
+        x, aux = _moe(cfg, p, _mamba(cfg, p, x, layer), use_ragged_moe,
+                      layer)
     elif kind == "rglru":
-        x = x + R.apply_rglru_block(cfg, p["rec"],
-                                    L.apply_norm(cfg, p["norm1"], x))
-        x = x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+        x = _add(cfg, x, R.apply_rglru_block(
+            cfg, p["rec"], L.apply_norm(cfg, p["norm1"], x)))
+        x = _add(cfg, x, L.apply_mlp(cfg, p["mlp"],
+                                     L.apply_norm(cfg, p["norm2"], x)))
     else:
         raise ValueError(kind)
     return x, aux
@@ -143,7 +191,7 @@ def prefill_block(cfg, p, x, positions, kind: str, batch_size: int,
         h, (k, v) = L.attention(cfg, p["attn"],
                                 L.apply_norm(cfg, p["norm1"], x), positions,
                                 window=_window(cfg, kind), return_kv=True)
-        x = x + h
+        x = _add(cfg, x, h)
         if cache is None:
             cache = L.init_kv_cache(cfg, batch_size, max_len, dtype,
                                     x.device)
@@ -152,22 +200,23 @@ def prefill_block(cfg, p, x, positions, kind: str, batch_size: int,
         if kind == "moe":
             y, _ = M.apply_moe(cfg, p["moe"],
                                L.apply_norm(cfg, p["norm2"], x))
-            x = x + y
+            x = _add(cfg, x, y)
         else:
-            x = x + L.apply_mlp(cfg, p["mlp"],
-                                L.apply_norm(cfg, p["norm2"], x))
+            x = _add(cfg, x, L.apply_mlp(cfg, p["mlp"],
+                                         L.apply_norm(cfg, p["norm2"], x)))
     elif kind == "ssm":
         y, new = S.apply_mamba2(cfg, p["mamba"],
                                 L.apply_norm(cfg, p["norm1"], x),
                                 return_cache=True)
-        x = x + y
+        x = _add(cfg, x, y)
         cache = _fill(cache, new)
     elif kind == "rglru":
         y, new = R.apply_rglru_block(cfg, p["rec"],
                                      L.apply_norm(cfg, p["norm1"], x),
                                      return_cache=True)
-        x = x + y
-        x = x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+        x = _add(cfg, x, y)
+        x = _add(cfg, x, L.apply_mlp(cfg, p["mlp"],
+                                     L.apply_norm(cfg, p["norm2"], x)))
         cache = _fill(cache, new)
     else:
         raise ValueError(kind)
@@ -180,24 +229,25 @@ def decode_block(cfg, p, x, cache, pos: int, kind: str):
         h, cache = L.attention_decode(cfg, p["attn"],
                                       L.apply_norm(cfg, p["norm1"], x),
                                       cache, pos, window=_window(cfg, kind))
-        x = x + h
+        x = _add(cfg, x, h)
         if kind == "moe":
             y, _ = M.apply_moe(cfg, p["moe"],
                                L.apply_norm(cfg, p["norm2"], x))
-            x = x + y
+            x = _add(cfg, x, y)
         else:
-            x = x + L.apply_mlp(cfg, p["mlp"],
-                                L.apply_norm(cfg, p["norm2"], x))
+            x = _add(cfg, x, L.apply_mlp(cfg, p["mlp"],
+                                         L.apply_norm(cfg, p["norm2"], x)))
     elif kind == "ssm":
         y, cache = S.decode_mamba2(cfg, p["mamba"],
                                    L.apply_norm(cfg, p["norm1"], x), cache)
-        x = x + y
+        x = _add(cfg, x, y)
     elif kind == "rglru":
         y, cache = R.decode_rglru_block(cfg, p["rec"],
                                         L.apply_norm(cfg, p["norm1"], x),
                                         cache)
-        x = x + y
-        x = x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+        x = _add(cfg, x, y)
+        x = _add(cfg, x, L.apply_mlp(cfg, p["mlp"],
+                                     L.apply_norm(cfg, p["norm2"], x)))
     else:
         raise ValueError(kind)
     return x, cache
@@ -277,9 +327,9 @@ def apply_stack(cfg, p, x, positions, *, use_ragged_moe: bool = False):
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     head = cfg.first_k_dense if _is_scannable(cfg) else 0
     for i, (kind, lp) in enumerate(_layers(cfg, p, unbind=True)):
-        def block(h, lp=lp, kind=kind):
+        def block(h, lp=lp, kind=kind, i=i):
             return apply_block(cfg, lp, h, positions, kind,
-                               use_ragged_moe=use_ragged_moe)
+                               use_ragged_moe=use_ragged_moe, layer=i)
         if cfg.remat and i >= head:
             # the blocks draw no random numbers: no RNG state to replay
             x, aux = checkpoint(block, x, use_reentrant=False,
