@@ -146,8 +146,13 @@ Phases (each prints its seconds):
      (the decode step's device-busy ms, the round's fenced
      ``round.execute`` ms), and each estimated peak must fall within
      ``PEAK_BAND`` of the card's own for that work;
-  3. the exact kernel launch counts of each path (and zero plain-version
-     calls): K10 once per layer per decode step of each serve run (phase
+  3. D2 (``csrc/row_sum.cu``, the flush's modular row sum) bit-equal to the
+     CPU's int64 loop on ``testing.ROW_SUM_CASES`` and to the plain chain
+     on the card at 10 rows of 2^25 (all, 9 of 10, an unaligned view); the
+     exact kernel launch counts of each path (and zero plain-version
+     calls): D2 once a chunk of every streamed flush (the tier: of each
+     rank's rows, flat, or each leaf's, tree; the protocol's two flushes);
+     K10 once per layer per decode step of each serve run (phase
      2g: once per attention layer per step, twice per whisper decoder
      layer, never in mamba2); per
      training round at cohort 4 (one chunk of 4 clients, 14 leaves) K3 14,
@@ -176,7 +181,10 @@ Phases (each prints its seconds):
      kernel (``csrc/jax_random.cu``, ``uniform`` and ``normal``) at one
      client's 110 whisper-tiny leaves and at one 36,472,704-element draw,
      beside the Threefry-20 bound and the torch tile loop it replaced, run
-     on the card.
+     on the card; D2 at 10 rows of 2^25, at ``agg.mamba2-780m.tee``'s
+     flush (every chunk of a version, 10 rows each) and at its largest
+     chunk (10 x 475,398,144), beside its byte bound, the plain chain on
+     the card and ``torch.sum(rows.to(int64), 0)``.
 
 Phase 1 also holds K9 (``bit_counts``) bit-equal to its plain version
 (ragged N and F, T up to 256, p in {0, 0.1, 0.5, 1}, boundary uniforms, NaN
@@ -341,6 +349,10 @@ K9_OPS = 6
 # benchmark's train cell sizes them (one client's round uniforms, or the
 # TEE noise) and at one draw of all its parameters
 DRAW_ARCH, DRAW_SEQ, DRAW_N = "whisper-tiny", 64, 36_472_704
+# phases 3 and 4: D2 (the flush's modular row sum) on a flush's rows, 10
+# of 2^25, and on agg.mamba2-780m.tee's flush: mamba2-780m's plan in
+# chunks of 2^25 (whole leaves, padded to 512), 10 rows each
+SUM_ROWS, SUM_D, SUM_ARCH, SUM_PARAMS = 10, 1 << 25, "mamba2-780m", 780_148_992
 # phase 2j: the cost harness (repro_torch.launch.dryrun) at full width on
 # the production 16 x 16 mesh, one shape per arch (decode_32k: the whole
 # --all sweep takes ~8.5 min of host time) and the recorded skip; then the
@@ -1160,7 +1172,10 @@ def tier_path(torch, mp, counts: dict, smi: str, digests: dict) -> dict:
     ref = mp.run("client", 32)
     counts["tier-flat-ref"] = kernel_counts()
     peaks["flat client"] = _peak_gib(torch, reset=True)
-    want["tier-flat-ref"] = {"quantize_mask_prf": pushes * C}
+    # D2 (row_sum): one launch a chunk of each of a run's two flushes; the
+    # tree sums each leaf's rows apart
+    want["tier-flat-ref"] = {"quantize_mask_prf": pushes * C,
+                             "row_sum": 2 * C}
     flat_ms = _flat_session_ms(mp, "client", 32)
     rows.append(("flat AsyncServer client",) + flat_ms)
     for mode in ("client", "tee_stream"):
@@ -1170,7 +1185,9 @@ def tier_path(torch, mp, counts: dict, smi: str, digests: dict) -> dict:
             got, spans = tier_run(torch, mp, mode, two_level)
             counts[f"tier-{mode}-{topo}"] = kernel_counts()
             peaks[f"{mode}-{topo}"] = _peak_gib(torch, reset=True)
-            want[f"tier-{mode}-{topo}"] = {"quantize_mask_prf": pushes * C}
+            want[f"tier-{mode}-{topo}"] = {
+                "quantize_mask_prf": pushes * C,
+                "row_sum": 2 * C * (TIER_LEAVES if two_level else 1)}
             check(trees_equal(torch, got, ref),
                   f"tier {mode}/{topo} != the flat AsyncServer")
             digests[f"tier-{mode}-{topo}"] = tree_digest(got)
@@ -1233,7 +1250,8 @@ def tier_path(torch, mp, counts: dict, smi: str, digests: dict) -> dict:
     peaks["leaf death + survivors"] = _peak_gib(torch, reset=True)
     want["tier-leafdeath"] = {"quantize_mask_prf": 10 * C,
                               "pack_residues": 10 * C,
-                              "unpack_residues": 10 * C}
+                              "unpack_residues": 10 * C,
+                              "row_sum": TIER_LEAVES * C + C}
     check(trees_equal(torch, got, flat.params),
           "tier after a leaf death != the flat server over the survivors")
     check(fm["dead_leaves"] == 1 and fm["lost_contributions"] == 2,
@@ -1253,7 +1271,8 @@ def tier_path(torch, mp, counts: dict, smi: str, digests: dict) -> dict:
     got, spans = tier_run(torch, mp, "client", True, fl_kw=sketch)
     counts["tier-sketch"] = kernel_counts()
     peaks["client+sketch-tree"] = _peak_gib(torch, reset=True)
-    want["tier-sketch"] = {"rotate_quantize_prf": 2 * pushes * C}
+    want["tier-sketch"] = {"rotate_quantize_prf": 2 * pushes * C,
+                           "row_sum": 2 * C + 2 * TIER_LEAVES * C}
     check(trees_equal(torch, got, ref),
           "compressed tier != the compressed flat server")
     digests["tier-sketch"] = tree_digest(got)
@@ -1296,9 +1315,13 @@ def tier_path(torch, mp, counts: dict, smi: str, digests: dict) -> dict:
                   if sp.name == "encode_push")
     stored = sum(t.total("stored_contributions")
                  for t in (sess["tel"], sess["tel2"]))
+    partials = sum(s.num_leaves * C for t, s in ((sess["tel"], sess["srv"]),
+                                                  (sess["tel2"], sess["srv2"]))
+                   for sp in t.spans if sp.name == "decode")
     want["tier-obs"] = {"quantize_mask_prf": encodes * C,
                         "pack_residues": encodes * C,
-                        "unpack_residues": int(stored) * C}
+                        "unpack_residues": int(stored) * C,
+                        "row_sum": partials}
     log(f"  observability_smoke at {mp.cfg.name} widths: {obs_s:.1f} s, "
         f"reconcile clean, replay equal (trace and params), {encodes} "
         f"encodes, {int(stored)} stored, "
@@ -1355,9 +1378,12 @@ def tier_path(torch, mp, counts: dict, smi: str, digests: dict) -> dict:
     sim_s = time.perf_counter() - t0
     counts["tier-simtrain"] = kernel_counts()
     encodes = sum(1 for sp in tel.spans if sp.name == "encode_push")
-    # jax_random: the init's draws and one normal a client batch
+    # jax_random: the init's draws and one normal a client batch; row_sum
+    # once a flush of the classifier's one chunk
     want["tier-simtrain"] = {"quantize_mask_prf": encodes,
-                             "jax_random": mlp_init_draws() + len(batches)}
+                             "jax_random": mlp_init_draws() + len(batches),
+                             "row_sum": sum(1 for sp in tel.spans
+                                            if sp.name == "decode.sum")}
     import math
     first = statistics.mean(res.losses[:max(1, len(res.losses) // 10)])
     check(all(math.isfinite(v) for v in res.losses)
@@ -1423,7 +1449,8 @@ def tier_path(torch, mp, counts: dict, smi: str, digests: dict) -> dict:
         "launches: "
         + ", ".join(f"{k} {launched.get(k, 0)}" for k in (
             "quantize_mask_prf", "weighted_quantize_accum", ksa.PRF_LANE,
-            "rotate_quantize_prf", "pack_residues", "unpack_residues")))
+            "rotate_quantize_prf", "pack_residues", "unpack_residues",
+            "row_sum")))
     return want
 
 
@@ -1471,16 +1498,20 @@ def _dist_cases(seed: int):
 
 def _dist_want(case, world: int) -> dict:
     """The launches a case must show summed over the ranks: every landed
-    row is encoded once, on its leaf's rank; every rank decodes."""
+    row is encoded once, on its leaf's rank; every rank decodes.  D2
+    (row_sum) sums a rank's rows once a chunk of each flush, flat, or each
+    leaf's apart, in the tree."""
     from repro_torch.kernels import secure_agg as ksa
     C, pushes = EXPECT_CHUNKS, BUFFER + 6
     if case.name == "tier-tee":
         return {ksa.PRF_LANE: 2 * TIER_LEAVES * C}
     if case.name == "tier-leafdeath":
-        return dict.fromkeys(("quantize_mask_prf", "pack_residues",
-                              "unpack_residues"), 6 * C)
+        return dict(dict.fromkeys(("quantize_mask_prf", "pack_residues",
+                                   "unpack_residues"), 6 * C),
+                    row_sum=TIER_LEAVES * C)
     if case.name == "tier-sketch":
-        return {"rotate_quantize_prf": pushes * C}
+        return {"rotate_quantize_prf": pushes * C,
+                "row_sum": 2 * TIER_LEAVES * C}
     if case.name.startswith("tier-round"):
         # jax_random: every rank draws the inputs (the init's draws and the
         # features' normal); a uniform before every K6 encode
@@ -1490,7 +1521,8 @@ def _dist_want(case, world: int) -> dict:
                 "dequantize": world * Lc,
                 "jax_random": world * (mlp_init_draws() + 1)
                 + CLASSIFIER_COHORT * Lc}
-    return {"quantize_mask_prf": pushes * C}
+    return {"quantize_mask_prf": pushes * C,
+            "row_sum": 2 * C * (TIER_LEAVES if case.two_level else world)}
 
 
 def dist_tier_path(torch, seed: int, digests: dict, counts: dict,
@@ -3088,6 +3120,138 @@ def jax_random_times(torch, launched: int, smi: str) -> list:
     return out
 
 
+def row_sum_parity(torch) -> None:
+    """D2 bit-equal to the CPU's int64 loop on ``testing.ROW_SUM_CASES``
+    (wrapping sums, gates, 64-row launch groups, offset, stepped and padded
+    rows, an odd width), and to the plain chain run on the card at 10 rows
+    of 2^25: all rows, 9 of them, and a view 12 bytes past alignment."""
+    from repro_torch.kernels import row_sum as krs
+    from repro_torch.testing import ROW_SUM_CASES, row_sum_case
+    for name in ROW_SUM_CASES:
+        rows, gate = row_sum_case(name, "cuda")
+        check(torch.equal(krs.sum_rows(rows, gate).cpu(),
+                          krs.sum_rows(rows.cpu(), gate)),
+              f"row_sum {name}: the card != the CPU")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows = torch.randint(-2 ** 31, 2 ** 31, (SUM_ROWS, SUM_D + 4),
+                         generator=g, dtype=torch.int32, device="cuda")
+    gate = [b != 3 for b in range(SUM_ROWS)]
+    for what, view, gt in (("all rows", rows[:, :SUM_D], None),
+                           ("9 of 10", rows[:, :SUM_D], gate),
+                           ("offset", rows[:, 3:SUM_D + 3], gate)):
+        launches = krs.sum_rows.launches
+        got = krs.sum_rows(view, gt)
+        check(krs.sum_rows.launches == launches + 1,
+              f"row_sum {what}: {krs.sum_rows.launches - launches} launches")
+        check(torch.equal(got, krs.sum_rows_plain(view, gt)),
+              f"row_sum {what}: the kernel != the plain chain on the card")
+    del rows, got
+    empty_cache(torch)
+    log(f"  row_sum: {len(ROW_SUM_CASES)} cases bit-equal to the CPU; "
+        f"{SUM_ROWS} x {SUM_D:,} (all, 9 of 10, offset) bit-equal to the "
+        "plain chain on the card")
+
+
+def _sum_chunks():
+    """The padded chunk widths of ``SUM_ARCH``'s plan at ``SUM_D``."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.fl import aggregation as agg
+    from repro_torch.models.model import param_shapes
+    meta = T.tree_map(lambda s: torch.empty(s, device="meta"),
+                      param_shapes(registry.get_config(SUM_ARCH)))
+    plan = agg.plan_for(meta, FLConfig(param_chunk_elems=SUM_D))
+    check(plan.total == SUM_PARAMS, f"{SUM_ARCH}: {plan.total} parameters")
+    return plan.chunk_widths
+
+
+def _library_sum_ms(torch, rows):
+    """``torch.sum(rows.to(int64), 0)``'s time, where its int64 copy fits
+    on the card beside ``rows`` (None otherwise)."""
+    gib = 2 ** 30
+    need = rows.numel() * 8 + rows[0].numel() * 8 + gib
+    free = torch.cuda.mem_get_info()[0]
+    if free < need:
+        held = torch.cuda.memory_allocated()
+        log(f"  row_sum library yardstick at {tuple(rows.shape)}: not "
+            f"measured, {need / gib:.1f} GiB does not fit in "
+            f"{free / gib:.1f} free ({held / gib:.1f} allocated)")
+        return None
+    torch.sum(rows.to(torch.int64), 0)  # the int64 copy's allocation, once
+    return _cuda_ms(torch, lambda: torch.sum(rows.to(torch.int64), 0), 3)
+
+
+def row_sum_times(torch, launched: int, smi: str) -> list:
+    """D2 (CUDA events) at 10 rows of 2^25 and at the mamba cell's flush:
+    every chunk of a version back to back, and its largest chunk alone;
+    each beside its byte bound ((rows + 1) x D x 4 over 3.35 TB/s), the
+    plain chain on the card and ``torch.sum(rows.to(int64), 0)``."""
+    from repro_torch.kernels import row_sum as krs
+    src = "src/repro_torch/kernels/csrc/row_sum.cu"
+    replaces = "none (XLA fused the int32 wraparound sum)"
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def rand(D):
+        return torch.randint(-2 ** 31, 2 ** 31, (SUM_ROWS, D), generator=g,
+                             dtype=torch.int32, device="cuda")
+
+    def entry(what, bufs, ms, plain_ms, lib_ms):
+        D = sum(b.shape[1] for b in bufs)
+        e = _entry("row_sum", src, replaces, launched, ms, plain_ms,
+                   SUM_ROWS * D, (SUM_ROWS + 1) * D * 4, integer=True,
+                   library_ms=lib_ms)
+        e.update(shape=what, chunks=len(bufs))
+        log(f"  row_sum {what}: {ms:.3f} ms (bound {e['bound_ms']:.3f} ms "
+            f"by {e['bound_by']}, {e['bound_ms'] / ms:.2f} of it, "
+            f"{(SUM_ROWS + 1) * D * 4 / ms / 1e9:.2f} TB/s); plain chain "
+            f"{plain_ms:.2f} ms; library "
+            + (f"{lib_ms:.2f} ms" if lib_ms is not None else "not measured")
+            + f"; {smi}")
+        return e
+
+    def version(bufs):
+        for b in bufs:
+            krs.sum_rows(b)
+
+    def plain(bufs):
+        for b in bufs:
+            krs.sum_rows_plain(b)
+
+    out = []
+    rows = rand(SUM_D)
+    check(torch.equal(krs.sum_rows(rows), krs.sum_rows_plain(rows)),
+          "row_sum != the plain chain at 10 x 2^25")
+    out.append(entry(f"{SUM_ROWS} x {SUM_D:,}", [rows],
+                     _cuda_ms(torch, lambda: krs.sum_rows(rows), 20),
+                     _cuda_ms(torch, lambda: krs.sum_rows_plain(rows), 5),
+                     _library_sum_ms(torch, rows)))
+    del rows
+    empty_cache(torch)
+    widths = _sum_chunks()
+    bufs = [rand(w) for w in widths]
+    version(bufs)
+    plain(bufs)
+    out.append(entry(f"{SUM_ARCH} version ({len(widths)} chunks of "
+                     f"{SUM_ROWS} rows, widths {list(widths)})", bufs,
+                     _cuda_ms(torch, lambda: version(bufs), 5),
+                     _cuda_ms(torch, lambda: plain(bufs), 3), None))
+    big = bufs[max(range(len(widths)), key=widths.__getitem__)]
+    del bufs
+    empty_cache(torch)
+    check(torch.equal(krs.sum_rows(big), krs.sum_rows_plain(big)),
+          f"row_sum != the plain chain at {tuple(big.shape)}")
+    out.append(entry(f"{SUM_ARCH} largest chunk {SUM_ROWS} x "
+                     f"{big.shape[1]:,}", [big],
+                     _cuda_ms(torch, lambda: krs.sum_rows(big), 10),
+                     _cuda_ms(torch, lambda: krs.sum_rows_plain(big), 3),
+                     _library_sum_ms(torch, big)))
+    del big
+    empty_cache(torch)
+    return out
+
+
 def _entry(name, source, replaces, launches, ms, plain_ms, ops, nbytes, *,
            max_abs_err=0, library_ms=None, integer=False):
     """A kernel's line; ``ops`` are float operations (an FMA two) against
@@ -3224,6 +3388,7 @@ def main() -> int:
 
     with Phase("phase 3: kernels on the main path"):
         from repro_torch.kernels import secure_agg as ksa
+        row_sum_parity(torch)
         # launches per path: one per chunk of every push (or flush) that
         # runs the kernel; 14 pushes and 2 flushes per run
         per_run = EXPECT_CHUNKS * (BUFFER + 6)
@@ -3254,10 +3419,16 @@ def main() -> int:
         # complete and K1 draws its own uniforms, so only the enclave run
         # draws, a uniform per chunk of each push (its 8-bit stochastic
         # quantize)
+        # D2 (row_sum) once a chunk of each streamed run's two flushes:
+        # streamed off, client and tee_stream at 2 bits (uncompressed); off,
+        # client and tee_stream sketch at 2 bits, subsample off and client,
+        # the enclave run (compressed); the batched flushes run K2
+        streamed = {"uncompressed": 6, "compressed": 9}
         for path in ("uncompressed", "compressed"):
             want[path]["flash_decode"] = 0
             want[path]["bit_counts"] = 0
             want[path]["jax_random"] = per_run * (path == "compressed")
+            want[path]["row_sum"] = streamed[path] * flushes
             want[path].update(dict.fromkeys(round_kernels, 0))
         zero = dict.fromkeys(want["compressed"], 0)
         # serving: K10 once per layer per decode step; jax_random once per
@@ -3349,7 +3520,8 @@ def main() -> int:
         # update on the card (and on the CPU: its twin)
         want["protocol"] = dict(zero, quantize_mask_prf=PROTO_ROWS,
                                 dequantize=2,  # K7: the two flushes' decode
-                                jax_random=SECAGG_UPDATES)
+                                jax_random=SECAGG_UPDATES,
+                                row_sum=2)  # D2: the two flushes' sums
         for path, nonzero in family_want.items():
             want[path] = dict(zero, **nonzero)
         # the plain versions run on no CUDA path, but for the host-side
@@ -3388,6 +3560,7 @@ def main() -> int:
         entries += round_kernel_times(torch, launches, smi)
         entries.append(bitagg_time(torch, launches, smi))
         entries += jax_random_times(torch, launches["jax_random"], smi)
+        entries += row_sum_times(torch, launches["row_sum"], smi)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

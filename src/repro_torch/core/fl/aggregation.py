@@ -21,11 +21,12 @@ compressed wire) with its modular-sum flush
 The fused kernels of that path are called unconditionally —
 ``kernels.secure_agg.quantize_mask_prf`` for every uncompressed masked
 streamed push, ``rotate_quantize_prf`` for every sketch push and
-``weighted_quantize_accum`` for every batched flush — and the tensor's
-device picks the implementation (plain PyTorch on the CPU, the Hopper kernel
-on the card).  The streamed unmasked encode, the subsample encode and the
-wire-width masks of a compressed push are plain PyTorch, as in the JAX
-package.
+``weighted_quantize_accum`` for every batched flush, and the modular row
+sum ``kernels.row_sum.sum_rows`` (D2) for every streamed flush's chunk — and
+the tensor's device picks the implementation (plain PyTorch on the CPU, the
+Hopper kernel on the card).  The streamed unmasked encode, the subsample
+encode and the wire-width masks of a compressed push are plain PyTorch, as
+in the JAX package.
 
 Bit-exactness with the JAX package holds for every integer and every float
 op here except two reductions: the whole-model squared norm is summed in
@@ -55,6 +56,7 @@ from repro_torch.device import is_abstract
 from repro_torch.kernels import dp_clip as kdp
 from repro_torch.kernels import prf
 from repro_torch.kernels import secure_agg as ksa
+from repro_torch.kernels.row_sum import sum_rows
 
 
 class AggregationSpec(NamedTuple):
@@ -259,19 +261,6 @@ def finalize_aggregate(acc, total_weight, spec: "AggregationSpec", rng):
         mean = dp.add_noise(mean, rng, spec.tee_noise * spec.num_contributors
                             / _host_float(w))
     return mean
-
-
-def sum_rows(rows: torch.Tensor, gate: Optional[Sequence[bool]] = None
-             ) -> torch.Tensor:
-    """Modular (mod 2^32) sum of int32 rows, optionally gated -> int32.
-
-    Accumulated row by row in int64, so a (B, D) buffer never gets a
-    (B, D) int64 copy."""
-    acc = torch.zeros(rows.shape[1:], dtype=torch.int64, device=rows.device)
-    for b in range(rows.shape[0]):
-        if gate is None or gate[b]:
-            acc += rows[b]
-    return prf.to_int32(acc)
 
 
 # ---------------------------------------------------------------------------

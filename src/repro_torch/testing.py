@@ -133,16 +133,62 @@ def classifier_round_inputs(cohort: int, seed: int, device,
 def kernel_counts() -> Dict[str, Dict[str, int]]:
     """Launches and plain-version calls of every kernel wrapper."""
     from repro_torch.kernels import (bitagg, dp_clip, flash_decode, prf,
-                                     secure_agg)
+                                     row_sum, secure_agg)
     return {**secure_agg.counts(), **flash_decode.counts(),
-            **dp_clip.counts(), **bitagg.counts(), **prf.counts()}
+            **dp_clip.counts(), **bitagg.counts(), **prf.counts(),
+            **row_sum.counts()}
 
 
 def reset_kernel_counts() -> None:
     from repro_torch.kernels import (bitagg, dp_clip, flash_decode, prf,
-                                     secure_agg)
-    for m in (secure_agg, flash_decode, dp_clip, bitagg, prf):
+                                     row_sum, secure_agg)
+    for m in (secure_agg, flash_decode, dp_clip, bitagg, prf, row_sum):
         m.reset_counts()
+
+
+# kernels.row_sum.sum_rows's cases, shared by its CPU and its card tests:
+# wrapping sums, gates of all / no / some rows, the 64-row launch groups,
+# views whose rows are strided, offset or padded, and a ragged width
+ROW_SUM_CASES = ("extremes", "gate-none", "gate-some", "b1", "b10", "b64",
+                 "b65", "b130", "no-rows", "offset-base", "stepped-rows",
+                 "ragged-tail", "odd-width", "inner-dims")
+
+
+def row_sum_case(name: str, device="cpu"):
+    """``(rows, gate)`` of the case ``name``: the same words on every
+    device (drawn on the CPU from the case's index), each view cut on the
+    device from its base."""
+    g = torch.Generator().manual_seed(ROW_SUM_CASES.index(name))
+
+    def words(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=g,
+                             dtype=torch.int32).to(device)
+
+    if name == "extremes":  # every column's sum wraps, both ways
+        v = torch.tensor([-2 ** 31, 2 ** 31 - 1, -1, 2 ** 31 - 1, -2 ** 31],
+                         dtype=torch.int32)
+        return v.repeat(10, 8)[:, :37].contiguous().to(device), None
+    if name.startswith("gate-"):
+        gate = [False] * 10 if name == "gate-none" else \
+            [b % 3 != 1 for b in range(10)]
+        return words(10, 515), gate
+    if name in ("b1", "b10", "b64", "b65"):
+        return words(int(name[1:]), 129 if name != "b10" else 4099), None
+    if name == "b130":  # 129 gated rows: launches of 64, 64 and 1
+        return words(130, 129), [b != 7 for b in range(130)]
+    if name == "no-rows":
+        return words(0, 16), None
+    if name == "offset-base":  # rows start 12 bytes past 16-byte alignment
+        return words(10, 520)[:, 3:515], None
+    if name == "stepped-rows":  # every other row of a buffer
+        return words(20, 516)[::2], [b != 4 for b in range(10)]
+    if name == "ragged-tail":  # aligned rows, D % 4 == 3
+        return words(10, 1028)[:, :1023], None
+    if name == "odd-width":  # contiguous rows of 1023 words: unaligned
+        return words(10, 1023), None
+    if name == "inner-dims":
+        return words(10, 3, 4, 5), [b % 2 == 0 for b in range(10)]
+    raise KeyError(name)
 
 
 def tree_digest(tree) -> str:

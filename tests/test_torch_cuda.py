@@ -14,6 +14,7 @@ import torch
 from repro_torch import tree as T
 from repro_torch.configs import registry
 from repro_torch.configs.base import FLConfig
+from repro_torch.core.fl import aggregation as agg
 from repro_torch.core.fl import round as fl_round
 from repro_torch.core.analytics import bitagg as fa
 from repro_torch.core.fl import secure_agg as sa
@@ -21,10 +22,11 @@ from repro_torch.kernels import bitagg as k9
 from repro_torch.kernels import dp_clip as kdp
 from repro_torch.kernels import flash_decode as kfd
 from repro_torch.kernels import prf
+from repro_torch.kernels import row_sum as krs
 from repro_torch.kernels import secure_agg as ksa
 from repro_torch.launch import serve
 from repro_torch.models.model import build_model
-from repro_torch.testing import pin_cpu_threads
+from repro_torch.testing import ROW_SUM_CASES, pin_cpu_threads, row_sum_case
 
 pin_cpu_threads()
 
@@ -280,6 +282,77 @@ def test_cuda_jax_draw_runs_no_torch_op(cuda):
         ops.names
     assert tel.value("prf_device_draws", rounds=20) == 1
     assert tel.total("prf_host_tiles") == 0
+
+
+@pytest.fixture
+def default_registry():
+    """A fresh process registry, the previous one restored after."""
+    from repro_torch.core import telemetry as tele
+    tel = tele.Telemetry(record_spans=False)
+    prev = tele.set_default(tel)
+    try:
+        yield tel
+    finally:
+        tele.set_default(prev)
+
+
+def _row_sum_on_card(rows, gate, tel):
+    """``sum_rows`` on the card, with the launches and rows it counted."""
+    launches, plain = krs.sum_rows.launches, krs.sum_rows.plain_calls
+    rows0 = tel.total("modsum_device_rows")
+    got = agg.sum_rows(rows, gate)
+    torch.cuda.synchronize()
+    assert krs.sum_rows.plain_calls == plain
+    return (got, krs.sum_rows.launches - launches,
+            tel.total("modsum_device_rows") - rows0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ROW_SUM_CASES)
+def test_cuda_row_sum_matches_the_cpu_path(cuda, default_registry, name):
+    """D2 bit-equal to the CPU's int64 loop: wrapping sums, gates of all /
+    no / some rows, launches of at most 64 gated rows (65 and 129 gated
+    rows take 2 and 3), a base 12 bytes past 16-byte alignment, stepped
+    and padded rows, an odd width, rows of several dims."""
+    rows, gate = row_sum_case(name, cuda)
+    got, launches, counted = _row_sum_on_card(rows, gate, default_registry)
+    want = agg.sum_rows(rows.cpu(), gate)
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got.cpu(), want)
+    n = sum(1 for b in range(rows.shape[0]) if gate is None or gate[b])
+    assert launches == max(1, -(-n // krs.ROW_GROUP))
+    assert counted == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [(1 << 30) + 8, (1 << 30) + 7])
+def test_cuda_row_sum_offsets_past_2_31(cuda, default_registry, stride):
+    """Rows whose element offsets pass 2^31 (one row stride of 2^30 + 8
+    words, 16-byte aligned, and of 2^30 + 7, not): equal to the CPU's."""
+    D = 4099
+    g = torch.Generator(device=cuda).manual_seed(stride)
+    big = torch.randint(-2 ** 31, 2 ** 31, (2 * stride + D,), generator=g,
+                        dtype=torch.int32, device=cuda)
+    rows = big.as_strided((3, D), (stride, 1))
+    assert 2 * stride > 2 ** 31
+    got, launches, counted = _row_sum_on_card(rows, None,
+                                              default_registry)
+    assert torch.equal(got.cpu(), agg.sum_rows(rows.cpu()))
+    assert (launches, counted) == (1, 3)
+    del big, rows
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_cuda_row_sum_refuses_strided_columns(cuda):
+    """A row whose words are not contiguous raises: no copy, no launch."""
+    rows = torch.zeros((4, 64), dtype=torch.int32, device=cuda)[:, ::2]
+    launches = krs.sum_rows.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        agg.sum_rows(rows)
+    with pytest.raises(ValueError, match="int32"):
+        agg.sum_rows(torch.zeros((4, 64), dtype=torch.int64, device=cuda))
+    assert krs.sum_rows.launches == launches
 
 
 @pytest.mark.cuda
