@@ -126,26 +126,6 @@ def kernel_session(session: sa.MaskSession, device=None) -> ksa.SessionMeta:
         neighbors=session.neighbor_table(device=device))
 
 
-def _no_span(name: str, **labels):
-    return tele._NULL_SPAN
-
-
-def stage_spans(telemetry: Optional["tele.Telemetry"] = None,
-                labels=None):
-    """``span(name, **more)``: a stage span on ``telemetry`` (default: the
-    process registry) carrying the calling engine's ``labels``.  A registry
-    that records no spans gets the shared null span, with no label dict
-    built."""
-    tel = telemetry if telemetry is not None else tele.get_default()
-    if not tel.record_spans:
-        return _no_span
-    labels = labels or {}
-
-    def span(name: str, **more):
-        return tel.span(name, **labels, **more)
-    return span
-
-
 def _scalar(v, device) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=device)
 
@@ -493,7 +473,7 @@ def encode_plan_flat(xs: Sequence[torch.Tensor], weight, slot: int,
     ``push.clip`` (the whole-model norm and clip scale) and ``push.encode``
     (the chunk loop) stages, each with ``labels``.
     """
-    span = stage_spans(telemetry, labels)
+    span = tele.stage_spans(telemetry, labels)
     dev = xs[0].device
     with span("push.clip") as sp:
         nrm = prf.sqrt_f32(plan_sq_norms(plan, xs))
@@ -670,7 +650,7 @@ def aggregate_plan_masked_buffer(bufs: Sequence[torch.Tensor], present,
     stages, each with ``labels``: ``decode.sum`` and ``decode.recover`` per
     chunk, then ``decode.finalize``.
     """
-    span = stage_spans(telemetry, labels)
+    span = tele.stage_spans(telemetry, labels)
     pres = sa.present_flags(present)
     gate = [p == 1 for p in pres] if recover else None
     wire = plan_wire_chunks(spec, plan)

@@ -184,7 +184,7 @@ def build_masked_async_buffer_step(params, fl_cfg, *, buffer_size: int,
 
     def step(params, opt_state, mbufs, present, weights, staleness, norms,
              clips, session_key, rng, ops=None, labels=None):
-        span = agg.stage_spans(telemetry, labels)
+        span = tele.stage_spans(telemetry, labels)
         mbufs = mbufs if isinstance(mbufs, (tuple, list)) else (mbufs,)
         pres = torch.as_tensor(sa.present_flags(present), dtype=torch.float32,
                                device=weights.device)
@@ -235,7 +235,267 @@ class ClientPush(NamedTuple):
     compression: comp.CompressionSpec = comp.CompressionSpec()
 
 
-class AsyncServer:
+def _check_mask_mode(mask_mode: str) -> None:
+    if mask_mode not in ("off", "tee", "tee_stream", "client"):
+        raise ValueError(f"mask_mode {mask_mode!r}")
+
+
+class _BufferedSession:
+    """The session protocol both aggregation servers share: a buffer of
+    ``buffer_size`` slots per pairwise-mask session (= server ``version``),
+    the session's keys, tokens, compression operators and spans, ``pull``,
+    the ``ClientPush`` wire checks, the quorum ``flush`` and the release of
+    a decoded session.  A subclass owns placement and ingest: its buffers,
+    the push paths and ``_run_step`` (the server step over its buffers)."""
+
+    _engine = "async"  # the ``engine`` label of counters and spans
+    _peer = "server"  # this side's name in wire errors
+    _fault_keys = FAULT_METRIC_KEYS
+
+    def __init__(self, params, fl_cfg, buffer_size: int, *,
+                 staleness_exponent: float, staleness_mode: str,
+                 mask_mode: str, session_seed: int, strict: bool,
+                 telemetry: Optional["tele.Telemetry"], device):
+        self.device = device
+        self.params = _as_device_tree(params, device)
+        self.fl_cfg = fl_cfg
+        self.buffer_size = buffer_size
+        self.staleness_exponent = staleness_exponent
+        self.staleness_mode = staleness_mode
+        self.mask_mode = mask_mode
+        self.version = 0
+        self.last_metrics: Optional[dict] = None
+        self._applied_updates = 0
+        self._fill = 0
+        self.strict = strict
+        self.flush_quorum = float(getattr(fl_cfg, "flush_quorum", 0.0))
+        self.telemetry = (telemetry if telemetry is not None
+                          else tele.get_default())
+        self._eid = tele.new_session_id()
+        self._tl = {"engine": self._engine, "eid": self._eid}
+        self.fault_metrics = tele.TelemetryCounterView(
+            self.telemetry, self._fault_keys, **self._tl)
+        self._token_counter = 0
+        self._delivered_tokens: set = set()
+        self._present = [False] * buffer_size
+        self._session_base = prf.PRNGKey(session_seed)
+        self._push_base = prf.PRNGKey(0xA5)
+        self._spec = agg.make_spec(fl_cfg, buffer_size)
+        self._plan = agg.plan_for(self.params, fl_cfg)
+        self._opt_state = build_server_opt(fl_cfg).init(self.params)
+        # the session's compression operators: (version, ops), derived on
+        # first use in a session and shared by its pushes and its flush
+        self._ops = (None, None)
+        # enclave quantized wire: tee modes ship packed words of this width
+        # instead of the raw f32 delta (FLConfig.enclave_wire_bits)
+        ebits = int(getattr(fl_cfg, "enclave_wire_bits", 0))
+        self._enclave_bits = ebits if mask_mode in ("tee", "tee_stream") \
+            else 0
+        self._enclave_seq = 0
+        self._enclave_base = prf.PRNGKey(0xE7C)
+
+    @property
+    def plan(self) -> "agg.ParamPlan":
+        return self._plan
+
+    @property
+    def live_capacity(self) -> int:
+        """Session slots that can still fill: the quorum denominator."""
+        return self.buffer_size
+
+    def open_slots(self) -> List[int]:
+        return [i for i, p in enumerate(self._present) if not p]
+
+    def _session_key(self):
+        """Key words of the current pairwise-mask session (= buffer round)."""
+        return prf.fold_in(self._session_base, self.version)
+
+    def _new_token(self) -> int:
+        self._token_counter += 1
+        return self._token_counter
+
+    def _operators(self):
+        """The session's compression operators (None: identity), keyed by
+        the engine's session key and shared by its pushes and its flush."""
+        if self._spec.compression.identity:
+            return None
+        version, ops = self._ops
+        if version != self.version:
+            self._ops = (None, None)  # free the last session's first
+            ops = agg.plan_operators(self._spec, self._plan,
+                                     self._session_key(), device=self.device)
+            self._ops = (self.version, ops)
+        return ops
+
+    def _alloc_buffers(self, slots: Tuple[int, ...]) -> None:
+        """The session's buffers on ``device``, one ``slots`` block per
+        chunk: int32 wire rows and per-slot weights, norms and clip flags
+        when streaming, raw f32 rows and valid flags otherwise; per-slot
+        staleness in both."""
+        def zeros(*width, dtype=torch.float32):
+            return torch.zeros(slots + width, dtype=dtype, device=self.device)
+
+        self._stal = zeros()
+        if self._streaming:
+            self._wire = agg.plan_wire_chunks(self._spec, self._plan)
+            self._bufs = tuple(zeros(wc.padded, dtype=torch.int32)
+                               for wc in self._wire)
+            self._wts, self._norms, self._clips = zeros(), zeros(), zeros()
+        else:
+            self._bufs = tuple(zeros(ck.padded) for ck in self._plan.chunks)
+            self._valid = zeros()
+
+    def _write_row(self, at, rows, staleness, w=None, nrm=None,
+                   clipped=None) -> None:
+        """Store one row at buffer index ``at`` (a slot, or a (leaf, slot)
+        pair): its wire rows, weight, norm and clip flag when streaming,
+        its raw padded chunks (marked valid) otherwise."""
+        for b, r in zip(self._bufs, rows):
+            b[at] = r
+        self._stal[at] = float(staleness)
+        if self._streaming:
+            self._wts[at] = w
+            self._norms[at] = nrm
+            self._clips[at] = clipped
+        else:
+            self._valid[at] = 1.0
+
+    def _upload_lane(self) -> str:
+        return "packed" if self._spec.compression.identity else "compressed"
+
+    def _enclave_key(self):
+        """The next key of the enclave wire's per-ingest sequence."""
+        key = prf.fold_in(self._enclave_base, self._enclave_seq)
+        self._enclave_seq += 1
+        return key
+
+    def _enclave_wire(self, delta, key):
+        """:func:`enclave_wire` at this engine's width and range."""
+        return enclave_wire(self._plan, delta, key, self._enclave_bits,
+                            float(self.fl_cfg.secure_agg_range), self.device)
+
+    def _topology(self) -> dict:
+        """The placement labels of a span, between ``round`` and
+        ``engine``."""
+        return {}
+
+    def _span_labels(self, **labels) -> Optional[dict]:
+        """The labels of this engine's spans in the open session (None
+        when the registry records no spans)."""
+        if not self.telemetry.record_spans:
+            return None
+        return dict(round=self.version, **self._topology(), **self._tl,
+                    **labels)
+
+    def _span(self, name: str, **labels):
+        return tele.stage_spans(self.telemetry,
+                                self._span_labels())(name, **labels)
+
+    # -- client protocol ------------------------------------------------------
+    def pull(self) -> Tuple[Any, int]:
+        return self.params, self.version
+
+    def _require_client_mode(self, call: str, half: str) -> None:
+        if self.mask_mode != "client":
+            raise ValueError(
+                f"{call} is the {half} half of mask_mode='client' "
+                f"(server is in mask_mode={self.mask_mode!r})")
+
+    def _batch_slots(self, slot, k: int) -> List[int]:
+        """The session slots a stacked ``encode_push`` of ``k`` rows names:
+        ``k`` consecutive ones from a scalar ``slot``, else ``slot``'s."""
+        if np.ndim(slot) != 0:
+            return [int(s) for s in slot]
+        s0 = int(slot)
+        if s0 < 0 or s0 + k > self.buffer_size:
+            raise ValueError(
+                f"scalar slot={s0} with a stacked batch of {k} "
+                f"rows names session slots {s0}..{s0 + k - 1}, "
+                f"outside the session's {self.buffer_size} slots; "
+                f"pass an explicit slot sequence or start lower")
+        return list(range(s0, s0 + k))
+
+    def _check_wire(self, cp: ClientPush) -> None:
+        """Refuse a push packed for another field or encoded under another
+        compression spec than the session's."""
+        spec, peer = self._spec, self._peer
+        if cp.modulus != spec.field_modulus:
+            raise ValueError(
+                f"ClientPush packed for field modulus {cp.modulus} "
+                f"({sa.wire_bits(cp.modulus)}-bit wire) but the {peer}'s "
+                f"session field is {spec.field_modulus} "
+                f"({sa.wire_bits(spec.field_modulus)}-bit): the "
+                f"residue stream cannot be unpacked — client and {peer} "
+                "must agree on secure_agg_bits and the session size")
+        if cp.compression != spec.compression:
+            raise ValueError(
+                f"ClientPush encoded under compression "
+                f"{cp.compression.describe()} but the {peer}'s session "
+                f"expects {spec.compression.describe()}: the row "
+                "lives in a different sketch domain and would decode to "
+                f"garbage — client and {peer} must agree on compress_mode "
+                "and compress_rate for the session")
+
+    def _mark(self, slots, rng) -> None:
+        """Count stored rows at ``slots``; apply once the live capacity is
+        full (with dead leaves the session cannot reach ``buffer_size``:
+        ``_apply`` then recovers the dead slots)."""
+        for s in slots:
+            self._present[s] = True
+        self._fill += len(slots)
+        self.telemetry.count("stored_contributions", len(slots), **self._tl)
+        self.telemetry.gauge("buffered_contributions", self._fill,
+                             **self._tl)
+        cap = self.live_capacity
+        if cap > 0 and self._fill >= cap:
+            self._apply(rng)
+
+    def flush(self, rng=None, force: bool = False) -> bool:
+        """Apply a partially-filled session (dropout recovery in the masked
+        modes); abstains below ``FLConfig.flush_quorum`` of the live
+        capacity unless ``force``.  Returns True when a params update was
+        released."""
+        if self._fill <= 0:
+            return False
+        with self._span("flush", forced=force, fill=self._fill):
+            need = math.ceil(self.flush_quorum * max(self.live_capacity, 1))
+            if not force and self._fill < need:
+                self.fault_metrics["subquorum_deferrals"] += 1
+                return False
+            self._apply(rng)
+        return True
+
+    # -- server step ----------------------------------------------------------
+    def _apply(self, rng=None) -> None:
+        if rng is None:  # deterministic per-version stream
+            rng = prf.fold_in(prf.PRNGKey(0xA5), self.version)
+        rng = prf.key_words(rng)
+        recovery = self._fill < self.buffer_size
+        with self._span("decode", recovery=recovery, fill=self._fill) as sp:
+            self.params, self._opt_state, self.last_metrics = \
+                self._run_step(rng, recovery)
+            sp.fence(self.params)
+        self._present = [False] * self.buffer_size
+        self.version += 1
+        self._ops = (None, None)
+        self._applied_updates += self._fill
+        self.telemetry.count("aggregated_contributions", self._fill,
+                             **self._tl)
+        self.telemetry.gauge("buffered_contributions", 0, **self._tl)
+        self._fill = 0
+        self._end_session()
+        self.fault_metrics["released_updates"] += 1
+
+    def _run_step(self, rng, recovery: bool):
+        """(params, optimizer state, metrics) of the server step over the
+        session's buffers."""
+        raise NotImplementedError
+
+    def _end_session(self) -> None:
+        """Reset the subclass's per-session state on release."""
+
+
+class AsyncServer(_BufferedSession):
     """Buffered asynchronous aggregation with staleness weighting + DP.
 
     Mask modes, as in the JAX engine: "off" (streamed unmasked encode into
@@ -256,52 +516,14 @@ class AsyncServer:
                  strict: bool = True,
                  telemetry: Optional["tele.Telemetry"] = None,
                  device=None):
-        if mask_mode not in ("off", "tee", "tee_stream", "client"):
-            raise ValueError(f"mask_mode {mask_mode!r}")
-        self.device = _device.resolve(device)
-        self.params = _as_device_tree(params, self.device)
-        self.fl_cfg = fl_cfg
-        self.buffer_size = buffer_size
-        self.staleness_exponent = staleness_exponent
-        self.staleness_mode = staleness_mode
-        self.mask_mode = mask_mode
-        self.version = 0
-        self.last_metrics: Optional[dict] = None
-        self._applied_updates = 0
-        self._fill = 0
-        self.strict = strict
-        self.flush_quorum = float(getattr(fl_cfg, "flush_quorum", 0.0))
-        self.telemetry = (telemetry if telemetry is not None
-                          else tele.get_default())
-        self._eid = tele.new_session_id()
-        self._tl = {"engine": "async", "eid": self._eid}
-        self.fault_metrics = tele.TelemetryCounterView(
-            self.telemetry, FAULT_METRIC_KEYS, **self._tl)
-        self._token_counter = 0
-        self._delivered_tokens: set = set()
-        self._present = [False] * buffer_size
-        self._session_base = prf.PRNGKey(session_seed)
-        self._push_base = prf.PRNGKey(0xA5)
-
-        dev = self.device
-        self._plan = agg.plan_for(self.params, fl_cfg)
-        self._opt_state = build_server_opt(fl_cfg).init(self.params)
-        self._stal = torch.zeros((buffer_size,), dtype=torch.float32,
-                                 device=dev)
-        self._valid = torch.zeros((buffer_size,), dtype=torch.float32,
-                                  device=dev)
-        spec = agg.make_spec(fl_cfg, buffer_size)
-        self._spec = spec
-        # the session's compression operators: (version, ops), derived on
-        # first use in a session and shared by its pushes and its flush
-        self._ops = (None, None)
-        # enclave quantized wire: tee modes ship packed words of this width
-        # instead of the raw f32 delta (FLConfig.enclave_wire_bits)
-        ebits = int(getattr(fl_cfg, "enclave_wire_bits", 0))
-        self._enclave_bits = ebits if mask_mode in ("tee", "tee_stream") \
-            else 0
-        self._enclave_seq = 0
-        self._enclave_base = prf.PRNGKey(0xE7C)
+        _check_mask_mode(mask_mode)
+        super().__init__(
+            params, fl_cfg, buffer_size,
+            staleness_exponent=staleness_exponent,
+            staleness_mode=staleness_mode, mask_mode=mask_mode,
+            session_seed=session_seed, strict=strict, telemetry=telemetry,
+            device=_device.resolve(device))
+        spec = self._spec
         if mask_mode == "off":
             if stream_encode and not spec.use_secure_agg:
                 raise ValueError(
@@ -312,77 +534,22 @@ class AsyncServer:
         else:
             streaming = mask_mode in ("client", "tee_stream")
         self._streaming = streaming
-        plan = self._plan
+        if streaming and not spec.use_secure_agg:
+            raise ValueError(
+                f"mask_mode={mask_mode!r} requires secure_agg_bits > 0")
+        self._alloc_buffers((buffer_size,))
         if streaming:
-            if not spec.use_secure_agg:
-                raise ValueError(
-                    f"mask_mode={mask_mode!r} requires secure_agg_bits > 0")
             self._masked = mask_mode != "off"
-            self._wire = agg.plan_wire_chunks(spec, plan)
-            self._bufs = tuple(
-                torch.zeros((buffer_size, wc.padded), dtype=torch.int32,
-                            device=dev) for wc in self._wire)
-            self._wts = torch.zeros((buffer_size,), dtype=torch.float32,
-                                    device=dev)
-            self._norms = torch.zeros_like(self._wts)
-            self._clips = torch.zeros_like(self._wts)
-            self._step = build_masked_async_buffer_step(
-                self.params, fl_cfg, buffer_size=buffer_size, recover=False,
-                masked=self._masked, telemetry=self.telemetry, device=dev)
-            self._flush_step = build_masked_async_buffer_step(
-                self.params, fl_cfg, buffer_size=buffer_size, recover=True,
-                masked=self._masked, telemetry=self.telemetry, device=dev)
+            self._step, self._flush_step = (build_masked_async_buffer_step(
+                self.params, fl_cfg, buffer_size=buffer_size, recover=r,
+                masked=self._masked, telemetry=self.telemetry,
+                device=self.device) for r in (False, True))
         else:
-            self._bufs = tuple(
-                torch.zeros((buffer_size, ck.padded), dtype=torch.float32,
-                            device=dev) for ck in plan.chunks)
             self._step = build_async_buffer_step(
                 self.params, fl_cfg, buffer_size=buffer_size,
                 staleness_mode=staleness_mode,
                 staleness_exponent=staleness_exponent, mask_mode=mask_mode,
-                device=dev)
-
-    @property
-    def plan(self) -> "agg.ParamPlan":
-        return self._plan
-
-    def _session_key(self):
-        """Key words of the current pairwise-mask session (= buffer round)."""
-        return prf.fold_in(self._session_base, self.version)
-
-    def _new_token(self) -> int:
-        self._token_counter += 1
-        return self._token_counter
-
-    def _operators(self):
-        """The current session's compression operators (None: identity)."""
-        if self._spec.compression.identity:
-            return None
-        version, ops = self._ops
-        if version != self.version:
-            self._ops = (None, None)  # free the last session's first
-            ops = agg.plan_operators(self._spec, self._plan,
-                                     self._session_key(), device=self.device)
-            self._ops = (self.version, ops)
-        return ops
-
-    def _upload_lane(self) -> str:
-        return "packed" if self._spec.compression.identity else "compressed"
-
-    def _span_labels(self, **labels) -> Optional[dict]:
-        """The labels of this engine's spans in the open session (None
-        when the registry records no spans)."""
-        if not self.telemetry.record_spans:
-            return None
-        return dict(round=self.version, **self._tl, **labels)
-
-    def _span(self, name: str, **labels):
-        if not self.telemetry.record_spans:
-            return tele._NULL_SPAN
-        return self.telemetry.span(name, **self._span_labels(**labels))
-
-    def open_slots(self) -> List[int]:
-        return [i for i, p in enumerate(self._present) if not p]
+                device=self.device)
 
     # -- the streamed encode and the wire -------------------------------------
     def _masked_encode(self, delta, slot: int, staleness, session_key, rng):
@@ -400,11 +567,6 @@ class AsyncServer:
             labels=self._span_labels(slot=slot))
         return rows, w, nrm, clipped
 
-    def _enclave_wire(self, delta, key):
-        """:func:`enclave_wire` at this server's width and range."""
-        return enclave_wire(self._plan, delta, key, self._enclave_bits,
-                            float(self.fl_cfg.secure_agg_range), self.device)
-
     def _wire_pack(self, rows, session_key):
         """Client side: each chunk's session ``reduce``s its row to packed
         canonical field residues."""
@@ -417,42 +579,16 @@ class AsyncServer:
                                         self._spec.field_modulus)
                      for wr, wc in zip(wrows, self._wire))
 
-    def _write_row(self, slot: int, rows, staleness, w, nrm, clipped) -> None:
-        for b, r in zip(self._bufs, rows):
-            b[slot] = r
-        self._stal[slot] = float(staleness)
-        self._wts[slot] = w
-        self._norms[slot] = nrm
-        self._clips[slot] = clipped
-
     # -- client protocol ------------------------------------------------------
-    def pull(self) -> Tuple[Any, int]:
-        return self.params, self.version
-
     def encode_push(self, delta, client_version: int, rng=None,
                     slot: Optional[int] = None):
         """The CLIENT half of mask_mode='client': encode + mask one delta
         (or a stacked batch -> list of ``ClientPush``)."""
-        if self.mask_mode != "client":
-            raise ValueError(
-                f"encode_push is the client half of mask_mode='client' "
-                f"(server is in mask_mode={self.mask_mode!r})")
+        self._require_client_mode("encode_push", "client")
         k = batch_count(delta, self.params)
         if k is not None:
-            if slot is None:
-                slots = [i for i, p in enumerate(self._present) if not p][:k]
-            elif isinstance(slot, int) or (isinstance(slot, torch.Tensor)
-                                           and slot.dim() == 0):
-                s0 = int(slot)
-                if s0 < 0 or s0 + k > self.buffer_size:
-                    raise ValueError(
-                        f"scalar slot={s0} with a stacked batch of {k} "
-                        f"rows names session slots {s0}..{s0 + k - 1}, "
-                        f"outside the session's {self.buffer_size} slots; "
-                        f"pass an explicit slot sequence or start lower")
-                slots = list(range(s0, s0 + k))
-            else:
-                slots = [int(s) for s in slot]
+            slots = (self.open_slots()[:k] if slot is None
+                     else self._batch_slots(slot, k))
             if len(slots) < k:
                 raise ValueError(
                     f"batched encode_push of {k} rows but only "
@@ -487,10 +623,7 @@ class AsyncServer:
     def push_encoded(self, cp, rng=None):
         """The SERVER half of mask_mode='client': store one masked row (or a
         list of them; returns the stored count)."""
-        if self.mask_mode != "client":
-            raise ValueError(
-                f"push_encoded is the server half of mask_mode='client' "
-                f"(server is in mask_mode={self.mask_mode!r})")
+        self._require_client_mode("push_encoded", "server")
         if isinstance(cp, list):
             return sum(1 for one in cp if self.push_encoded(one, rng))
         with self._span("push_encoded", slot=cp.slot):
@@ -510,22 +643,7 @@ class AsyncServer:
                 f"server at session {self.version}, slot filled="
                 f"{self._present[cp.slot] if 0 <= cp.slot < self.buffer_size else 'n/a'}): "
                 "the pairwise mask no longer matches an open session position")
-        if cp.modulus != self._spec.field_modulus:
-            raise ValueError(
-                f"ClientPush packed for field modulus {cp.modulus} "
-                f"({sa.wire_bits(cp.modulus)}-bit wire) but the server's "
-                f"session field is {self._spec.field_modulus} "
-                f"({sa.wire_bits(self._spec.field_modulus)}-bit): the "
-                "residue stream cannot be unpacked — client and server must "
-                "agree on secure_agg_bits and the session size")
-        if cp.compression != self._spec.compression:
-            raise ValueError(
-                f"ClientPush encoded under compression "
-                f"{cp.compression.describe()} but the server's session "
-                f"expects {self._spec.compression.describe()}: the row "
-                "lives in a different sketch domain and would decode to "
-                "garbage — client and server must agree on compress_mode "
-                "and compress_rate for the session")
+        self._check_wire(cp)
         wrows = cp.row if isinstance(cp.row, tuple) else (cp.row,)
         self.telemetry.count(
             "upload_bytes", 4 * sum(int(w_.numel()) for w_ in wrows),
@@ -543,13 +661,7 @@ class AsyncServer:
         with self._span("push.store", slot=slot) as sp:
             self._write_row(slot, rows, staleness, w, nrm, clipped)
             sp.fence(self._bufs)
-        self._present[slot] = True
-        self._fill += 1
-        self.telemetry.count("stored_contributions", **self._tl)
-        self.telemetry.gauge("buffered_contributions", self._fill,
-                             **self._tl)
-        if self._fill >= self.buffer_size:
-            self._apply(rng)
+        self._mark([slot], rng)
 
     def push(self, delta, client_version: int, rng=None,
              slot: Optional[int] = None, push_id: Optional[int] = None):
@@ -599,9 +711,7 @@ class AsyncServer:
         if self._enclave_bits:
             # the tee ingests the client-side quantization's reconstruction;
             # the packed words are what crossed the wire
-            ekey = prf.fold_in(self._enclave_base, self._enclave_seq)
-            self._enclave_seq += 1
-            delta, ewords = self._enclave_wire(delta, ekey)
+            delta, ewords = self._enclave_wire(delta, self._enclave_key())
             self.telemetry.count(
                 "upload_bytes", 4 * sum(int(w_.numel()) for w_ in ewords),
                 lane="enclave", **self._tl)
@@ -614,61 +724,22 @@ class AsyncServer:
             return True
         rows = self._plan.chunk_arrays(_as_device_tree(delta, self.device),
                                        pad=True)
-        for b, r in zip(self._bufs, rows):
-            b[slot] = r
-        self._stal[slot] = float(staleness)
-        self._valid[slot] = 1.0
-        self._present[slot] = True
-        self._fill += 1
-        self.telemetry.count("stored_contributions", **self._tl)
-        self.telemetry.gauge("buffered_contributions", self._fill,
-                             **self._tl)
-        if self._fill >= self.buffer_size:
-            self._apply(rng)
-        return True
-
-    def flush(self, rng=None, force: bool = False) -> bool:
-        """Apply a partially-filled buffer (dropout recovery in the masked
-        modes); abstains below ``FLConfig.flush_quorum`` unless ``force``."""
-        if self._fill <= 0:
-            return False
-        with self._span("flush", forced=force, fill=self._fill):
-            need = math.ceil(self.flush_quorum * self.buffer_size)
-            if not force and self._fill < need:
-                self.fault_metrics["subquorum_deferrals"] += 1
-                return False
-            self._apply(rng)
+        self._write_row(slot, rows, staleness)
+        self._mark([slot], rng)
         return True
 
     # -- server step ----------------------------------------------------------
-    def _apply(self, rng=None) -> None:
-        if rng is None:
-            rng = prf.fold_in(prf.PRNGKey(0xA5), self.version)
-        rng = prf.key_words(rng)
-        recovery = self._fill < self.buffer_size
-        with self._span("decode", recovery=recovery, fill=self._fill) as sp:
-            if self._streaming:
-                step = self._flush_step if recovery else self._step
-                self.params, self._opt_state, self.last_metrics = step(
-                    self.params, self._opt_state, self._bufs,
-                    list(self._present), self._wts, self._stal, self._norms,
-                    self._clips, self._session_key(), rng,
-                    ops=self._operators(), labels=self._span_labels())
-            else:
-                self.params, self._opt_state, self.last_metrics = self._step(
-                    self.params, self._opt_state, self._bufs, self._stal,
-                    self._valid, rng)
-                self._valid.zero_()
-            self._present = [False] * self.buffer_size
-            sp.fence(self.params)
-        self.version += 1
-        self._ops = (None, None)
-        self._applied_updates += self._fill
-        self.telemetry.count("aggregated_contributions", self._fill,
-                             **self._tl)
-        self.telemetry.gauge("buffered_contributions", 0, **self._tl)
-        self._fill = 0
-        self.fault_metrics["released_updates"] += 1
+    def _run_step(self, rng, recovery: bool):
+        if self._streaming:
+            step = self._flush_step if recovery else self._step
+            return step(self.params, self._opt_state, self._bufs,
+                        list(self._present), self._wts, self._stal,
+                        self._norms, self._clips, self._session_key(), rng,
+                        ops=self._operators(), labels=self._span_labels())
+        out = self._step(self.params, self._opt_state, self._bufs,
+                         self._stal, self._valid, rng)
+        self._valid.zero_()
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -49,8 +49,7 @@ enclave wire.
 """
 from __future__ import annotations
 
-import math
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,10 +60,11 @@ from repro_torch.core import telemetry as tele
 from repro_torch.core.fl import aggregation as agg
 from repro_torch.core.fl import secure_agg as sa
 from repro_torch.core.fl.async_fl import (FAULT_METRIC_KEYS, ClientPush,
-                                          _as_device_tree, batch_count,
+                                          _as_device_tree, _BufferedSession,
+                                          _check_mask_mode, batch_count,
                                           build_async_buffer_step,
                                           build_masked_async_buffer_step,
-                                          enclave_wire, staleness_weight)
+                                          staleness_weight)
 from repro_torch.core.fl.server_opt import build_server_opt
 from repro_torch.kernels import prf
 from repro_torch.launch.mesh import leaf_range, leaves_per_device
@@ -226,13 +226,13 @@ def gather_slots(mesh, *per_slot: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return tuple(dist.all_gather_cat(torch.stack(flat), mesh.group, dim=1))
 
 
-def _rank_span(tel, mesh, name: str, **labels):
-    """A span of a rank's flush stage, under a process group only: the
-    one-process tier keeps the reference's span set (which the
-    observability twin prints)."""
+def _rank_spans(tel, mesh, labels):
+    """The stage spans of a rank's flush (:func:`telemetry.stage_spans`),
+    under a process group only: the one-process tier keeps the reference's
+    span set (which the observability twin prints)."""
     if mesh is None or mesh.group is None:
-        return tele._NULL_SPAN
-    return tel.span(name, **labels)
+        return tele._no_span
+    return tele.stage_spans(tel, labels)
 
 
 def _local_leaves(num_leaves: int, mesh, device) -> range:
@@ -292,6 +292,7 @@ def build_sharded_masked_step(params, fl_cfg, *, num_leaves: int,
     rows = slice(leaves.start * Bl, leaves.stop * Bl)
     tel = telemetry if telemetry is not None else tele.get_default()
     labels = dict(engine="tier", topology="flat")
+    span = _rank_spans(tel, mesh, labels)
 
     def step(params, opt_state, mbufs, present, weights, staleness, norms,
              clips, session_key, rng, ops=None):
@@ -303,7 +304,7 @@ def build_sharded_masked_step(params, fl_cfg, *, num_leaves: int,
         gate = [p == 1 for p in pres[rows]]
         ckeys = plan.session_keys(session_key)
         accs = []
-        with _rank_span(tel, mesh, "leaf_partials", **labels) as sp:
+        with span("leaf_partials") as sp:
             for c, (wc, buf) in enumerate(zip(wire, bufs)):
                 flat = buf.reshape(-1, buf.shape[-1])
                 if not recover:  # complete session: masks cancel
@@ -363,6 +364,7 @@ def build_sharded_buffer_step(params, fl_cfg, *, num_leaves: int,
     is_masked = mask_mode == "tee"
     tel = telemetry if telemetry is not None else tele.get_default()
     labels = dict(engine="tier", topology="flat")
+    span = _rank_spans(tel, mesh, labels)
 
     def step(params, opt_state, bufs, staleness, valid, rng):
         bufs = _as_chunks(bufs)
@@ -375,7 +377,7 @@ def build_sharded_buffer_step(params, fl_cfg, *, num_leaves: int,
         sessions = (agg.plan_sessions(spec, plan, prf.fold_in(rng, 0x7EE),
                                       slot_offset=rows.start)
                     if is_masked else None)
-        with _rank_span(tel, mesh, "leaf_partials", **labels) as sp:
+        with span("leaf_partials") as sp:
             accs, nrm, clipped = agg.encode_plan_rows(
                 tuple(b.reshape(-1, b.shape[-1]) for b in bufs),
                 w_full[rows], _row_uniforms(rng, B, rows, plan, dev), noise,
@@ -423,6 +425,7 @@ def build_two_level_masked_step(params, fl_cfg, *, num_leaves: int,
     leaves = _local_leaves(L, mesh, device)
     tel = telemetry if telemetry is not None else tele.get_default()
     labels = dict(engine="tier", topology="tree")
+    span = _rank_spans(tel, mesh, labels)
 
     def step(params, opt_state, mbufs, present, weights, staleness, norms,
              clips, session_key, rng, ops=None):
@@ -436,7 +439,7 @@ def build_two_level_masked_step(params, fl_cfg, *, num_leaves: int,
         ckeys = plan.session_keys(session_key)
         sweep = recover and masked
         accs = []
-        with _rank_span(tel, mesh, "leaf_partials", **labels) as sp:
+        with span("leaf_partials") as sp:
             for c, (wc, buf) in enumerate(zip(wire, bufs)):
                 rsess = root_session(spec, ckeys[c], L) if sweep else None
                 acc = None
@@ -502,6 +505,7 @@ def build_two_level_buffer_step(params, fl_cfg, *, num_leaves: int,
     leaves = _local_leaves(L, mesh, device)
     tel = telemetry if telemetry is not None else tele.get_default()
     labels = dict(engine="tier", topology="tree")
+    span = _rank_spans(tel, mesh, labels)
 
     def step(params, opt_state, bufs, staleness, valid, rng):
         bufs = _as_chunks(bufs)
@@ -515,7 +519,7 @@ def build_two_level_buffer_step(params, fl_cfg, *, num_leaves: int,
         noise = _buffer_noise(rng, B, spec, plan, w_full, mine, dev)
         accs = [None] * plan.num_chunks
         nrms, clips = [], []
-        with _rank_span(tel, mesh, "leaf_partials", **labels) as sp:
+        with span("leaf_partials") as sp:
             for j, leaf in enumerate(leaves):
                 rows = slice(leaf * Bl, (leaf + 1) * Bl)
                 u_l = _row_uniforms(rng, B, rows, plan, dev)
@@ -538,7 +542,7 @@ def build_two_level_buffer_step(params, fl_cfg, *, num_leaves: int,
     return step
 
 
-class ShardedAsyncServer:
+class ShardedAsyncServer(_BufferedSession):
     """Buffered asynchronous aggregation over the leaf/root tier (see the
     JAX class for the protocol).
 
@@ -574,8 +578,14 @@ class ShardedAsyncServer:
     ``ClientPush`` rows (unpacked per destination leaf).  Mask modes match
     ``AsyncServer``'s ("off" always streams here).  A leaf marked dead
     (:meth:`mark_leaf_dead`) leaves slot allocation and the quorum
-    denominator for the rest of its session.
+    denominator for the rest of its session.  The session protocol itself
+    (keys, tokens, wire checks, quorum flush, release) is
+    ``async_fl._BufferedSession``'s, shared with ``AsyncServer``.
     """
+
+    _engine = "tier"
+    _peer = "tier"
+    _fault_keys = FAULT_METRIC_KEYS + ("dead_leaves",)
 
     def __init__(self, params, fl_cfg, *, num_leaves: Optional[int] = None,
                  leaf_buffer: Optional[int] = None,
@@ -586,8 +596,7 @@ class ShardedAsyncServer:
                  strict: bool = True,
                  telemetry: Optional["tele.Telemetry"] = None,
                  device=None):
-        if mask_mode not in ("off", "tee", "tee_stream", "client"):
-            raise ValueError(f"mask_mode {mask_mode!r}")
+        _check_mask_mode(mask_mode)
         num_leaves = num_leaves or fl_cfg.num_leaves
         leaf_buffer = leaf_buffer or fl_cfg.leaf_buffer
         if not num_leaves or not leaf_buffer:
@@ -605,69 +614,29 @@ class ShardedAsyncServer:
                                  f"position is on {dev}")
             if mesh.group is None:  # one process hosts every leaf
                 mesh = None
-        self.device = dev
         self.mesh = mesh
-        self.params = _as_device_tree(params, dev)
-        self.fl_cfg = fl_cfg
         self.num_leaves = L = num_leaves
         self.leaf_buffer = Bl = leaf_buffer
-        self.buffer_size = B = L * Bl
+        self.two_level = two_level
         # the leaves this process hosts (every leaf without a process group)
         self._leaves = _local_leaves(L, mesh, dev)
-        nl = len(self._leaves)
-        self.staleness_exponent = staleness_exponent
-        self.staleness_mode = staleness_mode
-        self.mask_mode = mask_mode
-        self.two_level = two_level
-        self.version = 0
-        self.last_metrics: Optional[dict] = None
-        self._applied_updates = 0
-        self._fill = 0
-        self.strict = strict
-        self.flush_quorum = float(getattr(fl_cfg, "flush_quorum", 0.0))
-        self.telemetry = (telemetry if telemetry is not None
-                          else tele.get_default())
-        self._eid = tele.new_session_id()
-        self._tl = {"engine": "tier", "eid": self._eid}
-        self.fault_metrics = tele.TelemetryCounterView(
-            self.telemetry, FAULT_METRIC_KEYS + ("dead_leaves",), **self._tl)
-        self._token_counter = 0
-        self._delivered_tokens: set = set()
+        B = L * Bl
+        super().__init__(
+            params, fl_cfg, B, staleness_exponent=staleness_exponent,
+            staleness_mode=staleness_mode, mask_mode=mask_mode,
+            session_seed=session_seed, strict=strict, telemetry=telemetry,
+            device=dev)
+        _require_field(self._spec)
         self._dead_leaves: set = set()
-        self._session_base = prf.PRNGKey(session_seed)
-        self._push_base = prf.PRNGKey(0xA5)
-
-        spec = agg.make_spec(fl_cfg, B)
-        _require_field(spec)
-        self._spec = spec
-        self._plan = plan = agg.plan_for(self.params, fl_cfg)
-        self._wire = agg.plan_wire_chunks(spec, plan)
-        self._opt_state = build_server_opt(fl_cfg).init(self.params)
-        # the session's compression operators and row sessions, derived on
-        # first use in a session: (version, value)
-        self._ops = (None, None)
+        # the session's row sessions, derived on first use in a session:
+        # (version, value)
         self._row_sessions = (None, {})
-        ebits = int(getattr(fl_cfg, "enclave_wire_bits", 0))
-        self._enclave_bits = ebits if mask_mode in ("tee", "tee_stream") \
-            else 0
-        self._enclave_seq = 0
-        self._enclave_base = prf.PRNGKey(0xE7C)
-
-        def zslot():
-            return torch.zeros((nl, Bl), dtype=torch.float32, device=dev)
-
-        self._stal = zslot()
-        # per-GLOBAL-slot presence (host metadata)
-        self._present = [False] * B
         self._streaming = mask_mode != "tee"
         self._masked = mask_mode not in ("off", "tee")
+        self._alloc_buffers((len(self._leaves), Bl))
         tier = dict(num_leaves=L, leaf_buffer=Bl, mesh=mesh, device=dev,
                     telemetry=self.telemetry)
         if self._streaming:
-            self._bufs = tuple(
-                torch.zeros((nl, Bl, wc.padded), dtype=torch.int32,
-                            device=dev) for wc in self._wire)
-            self._wts, self._norms, self._clips = zslot(), zslot(), zslot()
             if two_level:
                 self._step, self._flush_step = (build_two_level_masked_step(
                     self.params, fl_cfg, recover=r, masked=self._masked,
@@ -683,10 +652,6 @@ class ShardedAsyncServer:
                         masked=self._masked, device=dev)
                     for r in (False, True))
         else:  # "tee": raw rows, the batched in-enclave mask lane at flush
-            self._bufs = tuple(
-                torch.zeros((nl, Bl, ck.padded), dtype=torch.float32,
-                            device=dev) for ck in plan.chunks)
-            self._valid = zslot()
             stal_kw = dict(staleness_mode=staleness_mode,
                            staleness_exponent=staleness_exponent)
             if two_level:
@@ -700,50 +665,14 @@ class ShardedAsyncServer:
                     self.params, fl_cfg, buffer_size=B, mask_mode="tee",
                     device=dev, **stal_kw)
 
-    # -- plan / buffer views ------------------------------------------------
-    @property
-    def plan(self) -> "agg.ParamPlan":
-        return self._plan
-
+    # -- buffer views / session bookkeeping ---------------------------------
     @property
     def _buf(self):
         """The bare buffer of a single-chunk plan, else the chunk tuple."""
         return self._bufs[0] if len(self._bufs) == 1 else self._bufs
 
-    # -- session bookkeeping ------------------------------------------------
-    def _session_key(self):
-        return prf.fold_in(self._session_base, self.version)
-
-    def _new_token(self) -> int:
-        self._token_counter += 1
-        return self._token_counter
-
-    def _span_labels(self, **labels) -> Optional[dict]:
-        """The labels of this tier's spans in the open session (None when
-        the registry records no spans)."""
-        if not self.telemetry.record_spans:
-            return None
-        return dict(round=self.version,
-                    topology="tree" if self.two_level else "flat",
-                    **self._tl, **labels)
-
-    def _span(self, name: str, **labels):
-        if not self.telemetry.record_spans:
-            return tele._NULL_SPAN
-        return self.telemetry.span(name, **self._span_labels(**labels))
-
-    def _operators(self):
-        """The session's compression operators (None: identity), keyed by
-        the ENGINE session key and shared by every leaf, push and flush."""
-        if self._spec.compression.identity:
-            return None
-        version, ops = self._ops
-        if version != self.version:
-            self._ops = (None, None)  # free the last session's first
-            ops = agg.plan_operators(self._spec, self._plan,
-                                     self._session_key(), device=self.device)
-            self._ops = (self.version, ops)
-        return ops
+    def _topology(self) -> dict:
+        return {"topology": "tree" if self.two_level else "flat"}
 
     def _sessions_for(self, gslot: int):
         """(per-chunk sessions, mask slot) a row at GLOBAL slot ``gslot``
@@ -814,15 +743,30 @@ class ShardedAsyncServer:
         return (0 <= s < self.buffer_size and not self._present[s]
                 and (s // self.leaf_buffer) not in self._dead_leaves)
 
-    def _check_slots(self, slots) -> None:
-        """Every batch slot must be a distinct OPEN session position."""
-        if len(set(slots)) != len(slots):
-            raise ValueError(f"duplicate slots in batch: {list(slots)}")
-        for s in slots:
-            if not self._slot_open(s):
-                raise ValueError(
-                    f"slot {s} is not an open position of session "
-                    f"{self.version}")
+    def _admit(self, items: list, slot_of) -> list:
+        """The ``items`` whose slots (``slot_of(item)``) are distinct OPEN
+        session positions.  Under ``strict`` any other slot raises;
+        otherwise its item is counted rejected and dropped."""
+        if self.strict:
+            slots = [slot_of(x) for x in items]
+            if len(set(slots)) != len(slots):
+                raise ValueError(f"duplicate slots in batch: {slots}")
+            for s in slots:
+                if not self._slot_open(s):
+                    raise ValueError(
+                        f"slot {s} is not an open position of session "
+                        f"{self.version}")
+            return items
+        seen: set = set()
+        ok = []
+        for x in items:
+            s = slot_of(x)
+            if s in seen or not self._slot_open(s):
+                self.fault_metrics["rejected_pushes"] += 1
+                continue
+            seen.add(s)
+            ok.append(x)
+        return ok
 
     def _staleness_of(self, client_version, k: int) -> np.ndarray:
         """(k,) f32 staleness for a scalar or (k,) ``client_version``."""
@@ -879,23 +823,7 @@ class ShardedAsyncServer:
             telemetry=self.telemetry, labels=self._span_labels(slot=gslot))
         return rows, w, nrm, clipped
 
-    def _write(self, leaf: int, lslot: int, rows, staleness, w, nrm,
-               clipped) -> None:
-        j = leaf - self._leaves.start
-        for b, r in zip(self._bufs, rows):
-            b[j, lslot] = r
-        self._stal[j, lslot] = float(staleness)
-        self._wts[j, lslot] = w
-        self._norms[j, lslot] = nrm
-        self._clips[j, lslot] = clipped
-
-    def _upload_lane(self) -> str:
-        return "packed" if self._spec.compression.identity else "compressed"
-
     # -- client protocol ----------------------------------------------------
-    def pull(self) -> Tuple[Any, int]:
-        return self.params, self.version
-
     def push(self, delta, client_version, rng=None,
              slots: Optional[Sequence[int]] = None,
              push_ids: Optional[Sequence[int]] = None) -> None:
@@ -922,19 +850,7 @@ class ShardedAsyncServer:
         the session."""
         k = batch_count(delta, self.params)
         if k is not None:
-            if slot is None:
-                slots = None
-            elif np.ndim(slot) == 0:
-                s0 = int(slot)
-                if s0 < 0 or s0 + k > self.buffer_size:
-                    raise ValueError(
-                        f"scalar slot={s0} with a stacked batch of {k} "
-                        f"rows names session slots {s0}..{s0 + k - 1}, "
-                        f"outside the session's {self.buffer_size} slots; "
-                        f"pass an explicit slot sequence or start lower")
-                slots = list(range(s0, s0 + k))
-            else:
-                slots = [int(s) for s in slot]
+            slots = None if slot is None else self._batch_slots(slot, k)
             return self._encode_push_impl(delta, client_version, slots=slots)
         cps = self._encode_push_impl(
             T.tree_map(lambda x: torch.as_tensor(x)[None], delta),
@@ -954,10 +870,7 @@ class ShardedAsyncServer:
         """Encode a (K,)-stacked batch as the session's clients would (pure
         in server state): each row through :meth:`_encode_row`, then each
         chunk's wire ``reduce`` (the packed canonical residues)."""
-        if self.mask_mode != "client":
-            raise ValueError(
-                f"encode_push is the client half of mask_mode='client' "
-                f"(server is in mask_mode={self.mask_mode!r})")
+        self._require_client_mode("encode_push", "client")
         K = batch_count(deltas, self.params)
         if slots is None:
             slots = self._take_slots(K)
@@ -991,27 +904,9 @@ class ShardedAsyncServer:
         destination leaf.  Duplicates of delivered tokens are counted
         no-ops; stale sessions and closed or conflicting slots raise under
         ``strict`` and are counted-and-dropped otherwise."""
-        if self.mask_mode != "client":
-            raise ValueError(
-                f"push_encoded is the server half of mask_mode='client' "
-                f"(server is in mask_mode={self.mask_mode!r})")
+        self._require_client_mode("push_encoded", "server")
         for cp in cps:
-            if cp.modulus != self._spec.field_modulus:
-                raise ValueError(
-                    f"ClientPush packed for field modulus {cp.modulus} "
-                    f"({sa.wire_bits(cp.modulus)}-bit wire) but the tier's "
-                    f"session field is {self._spec.field_modulus} "
-                    f"({sa.wire_bits(self._spec.field_modulus)}-bit): the "
-                    "residue stream cannot be unpacked — client and tier "
-                    "must agree on secure_agg_bits and the session size")
-            if cp.compression != self._spec.compression:
-                raise ValueError(
-                    f"ClientPush encoded under compression "
-                    f"{cp.compression.describe()} but the tier's session "
-                    f"expects {self._spec.compression.describe()}: the row "
-                    "lives in a different sketch domain and would decode "
-                    "to garbage — client and tier must agree on "
-                    "compress_mode and compress_rate for the session")
+            self._check_wire(cp)
         kept: List[ClientPush] = []
         for cp in cps:
             if cp.token and cp.token in self._delivered_tokens:
@@ -1027,21 +922,10 @@ class ShardedAsyncServer:
                 self.fault_metrics["rejected_pushes"] += 1
                 continue
             kept.append(cp)
-        slots = [cp.slot for cp in kept]
-        if self.strict:
-            self._check_slots(slots)
-        else:
-            seen: set = set()
-            ok: List[ClientPush] = []
-            for cp in kept:
-                if cp.slot in seen or not self._slot_open(cp.slot):
-                    self.fault_metrics["rejected_pushes"] += 1
-                    continue
-                seen.add(cp.slot)
-                ok.append(cp)
-            kept, slots = ok, [cp.slot for cp in ok]
+        kept = self._admit(kept, lambda cp: cp.slot)
         if not kept:
             return 0
+        slots = [cp.slot for cp in kept]
         stals = np.asarray([cp.staleness for cp in kept], np.float32)
         nbytes = 0
         with self._span("push_encoded", k=len(kept)) as sp:
@@ -1053,8 +937,8 @@ class ShardedAsyncServer:
                     sa.unpack_residues(wr.to(self.device), wc.padded,
                                        self._spec.field_modulus)
                     for wr, wc in zip(wrows, self._wire))
-                self._write(leaf, lslot, rows, st, cp.weight, cp.norm,
-                            cp.clipped)
+                self._write_row((leaf - self._leaves.start, lslot), rows,
+                                st, cp.weight, cp.norm, cp.clipped)
             sp.fence(self._bufs)
         self.telemetry.count("upload_bytes", nbytes,
                              lane=self._upload_lane(), **self._tl)
@@ -1086,19 +970,7 @@ class ShardedAsyncServer:
                     fresh.append(i)
             kept = fresh
         if slot_of is not None:
-            if self.strict:
-                self._check_slots([slot_of[i] for i in kept])
-            else:
-                seen: set = set()
-                ok = []
-                for i in kept:
-                    s = slot_of[i]
-                    if s in seen or not self._slot_open(s):
-                        self.fault_metrics["rejected_pushes"] += 1
-                        continue
-                    seen.add(s)
-                    ok.append(i)
-                kept = ok
+            kept = self._admit(kept, slot_of.__getitem__)
         if not kept:
             return
         if isinstance(client_version, torch.Tensor):
@@ -1118,15 +990,11 @@ class ShardedAsyncServer:
             # the tier ingests the client-side quantization's reconstruction;
             # the packed words are what crossed the wire (one key per row,
             # split from the batch's key; rows of this process's leaves)
-            ekey = prf.fold_in(self._enclave_base, self._enclave_seq)
-            self._enclave_seq += 1
             nbytes = 0
-            for i, k in enumerate(prf.split(ekey, K)):
+            for i, k in enumerate(prf.split(self._enclave_key(), K)):
                 if not self._is_local(slots[i]):
                     continue
-                rows_in[i], words = enclave_wire(
-                    self._plan, rows_in[i], k, self._enclave_bits,
-                    float(self.fl_cfg.secure_agg_range), self.device)
+                rows_in[i], words = self._enclave_wire(rows_in[i], k)
                 nbytes += 4 * sum(int(w_.numel()) for w_ in words)
             self.telemetry.count("upload_bytes", nbytes, lane="enclave",
                                  **self._tl)
@@ -1135,11 +1003,8 @@ class ShardedAsyncServer:
                 for leaf, pos, lslot, st in self._routed(slots, stals):
                     rows = self._plan.chunk_arrays(
                         _as_device_tree(rows_in[pos], self.device), pad=True)
-                    j = leaf - self._leaves.start
-                    for b, r in zip(self._bufs, rows):
-                        b[j, lslot] = r
-                    self._stal[j, lslot] = st
-                    self._valid[j, lslot] = 1.0
+                    self._write_row((leaf - self._leaves.start, lslot), rows,
+                                    st)
                 sp.fence(self._bufs)
             self._mark(slots, rng)
             return
@@ -1148,70 +1013,30 @@ class ShardedAsyncServer:
                 gslot = leaf * self.leaf_buffer + lslot
                 rows, w, nrm, clipped = self._encode_row(rows_in[pos], gslot,
                                                          st)
-                self._write(leaf, lslot, rows, st, w, nrm, clipped)
+                self._write_row((leaf - self._leaves.start, lslot), rows,
+                                st, w, nrm, clipped)
             sp.fence(self._bufs)
         self._mark(slots, rng)
 
-    def _mark(self, slots, rng) -> None:
-        for s in slots:
-            self._present[s] = True
-        self._fill += len(slots)
-        self.telemetry.count("stored_contributions", len(slots), **self._tl)
-        self.telemetry.gauge("buffered_contributions", self._fill,
-                             **self._tl)
-        # with dead leaves the session cannot reach buffer_size: the trigger
-        # is the LIVE capacity, and _apply then recovers the dead slots
-        cap = self.live_capacity
-        if cap > 0 and self._fill >= cap:
-            self._apply(rng)
-
-    def flush(self, rng=None, force: bool = False) -> bool:
-        """Apply a partially-filled session (the dropout-recovery path);
-        abstains below ``FLConfig.flush_quorum`` of the LIVE capacity unless
-        ``force``.  Returns True when a params update was released."""
-        if self._fill <= 0:
-            return False
-        with self._span("flush", forced=force, fill=self._fill):
-            need = math.ceil(self.flush_quorum * max(self.live_capacity, 1))
-            if not force and self._fill < need:
-                self.fault_metrics["subquorum_deferrals"] += 1
-                return False
-            self._apply(rng)
-        return True
-
     # -- server step --------------------------------------------------------
-    def _apply(self, rng=None) -> None:
-        if rng is None:  # deterministic per-version stream
-            rng = prf.fold_in(prf.PRNGKey(0xA5), self.version)
-        rng = prf.key_words(rng)
+    def _run_step(self, rng, recovery: bool):
         B = self.buffer_size
-        recovery = self._fill < B
         # in one process the flat topology's step is the flat engine's:
         # (B, padded) rows
         bufs = (self._bufs if self.two_level or self.mesh is not None
                 else tuple(b.view(B, -1) for b in self._bufs))
-        with self._span("decode", recovery=recovery, fill=self._fill) as sp:
-            if self._streaming:
-                step = self._flush_step if recovery else self._step
-                self.params, self._opt_state, self.last_metrics = step(
-                    self.params, self._opt_state, bufs, list(self._present),
-                    self._wts.view(-1), self._stal.view(-1),
-                    self._norms.view(-1), self._clips.view(-1),
-                    self._session_key(), rng, ops=self._operators())
-            else:
-                self.params, self._opt_state, self.last_metrics = self._step(
-                    self.params, self._opt_state, bufs, self._stal.view(-1),
-                    self._valid.view(-1), rng)
-                self._valid.zero_()
-            sp.fence(self.params)
-        self._present = [False] * self.buffer_size
-        self.version += 1
-        self._ops = (None, None)
+        if self._streaming:
+            step = self._flush_step if recovery else self._step
+            return step(self.params, self._opt_state, bufs,
+                        list(self._present), self._wts.view(-1),
+                        self._stal.view(-1), self._norms.view(-1),
+                        self._clips.view(-1), self._session_key(), rng,
+                        ops=self._operators())
+        out = self._step(self.params, self._opt_state, bufs,
+                         self._stal.view(-1), self._valid.view(-1), rng)
+        self._valid.zero_()
+        return out
+
+    def _end_session(self) -> None:
         self._row_sessions = (None, {})
-        self._applied_updates += self._fill
-        self.telemetry.count("aggregated_contributions", self._fill,
-                             **self._tl)
-        self.telemetry.gauge("buffered_contributions", 0, **self._tl)
-        self._fill = 0
         self._dead_leaves.clear()  # restarted leaves join the new session
-        self.fault_metrics["released_updates"] += 1

@@ -258,8 +258,7 @@ def build_round_step(loss_fn: Callable, fl_cfg, *, cohort_size: int,
         n_chunks = cohort_size // m
         deferred = getattr(fl_cfg, "deferred_agg", False) and m > 1
 
-    def span(name: str):
-        return tel.span(name, kind="sync")
+    span = tele.stage_spans(tel, {"kind": "sync"})
 
     def round_step(state: FLState, batch, rng):
         params = state.params
@@ -400,8 +399,7 @@ def build_sharded_round_step(loss_fn: Callable, fl_cfg, *, cohort_size: int,
                              "integer field: set secure_agg_bits > 0")
         masked = getattr(fl_cfg, "secure_agg_masked", False)
 
-    def span(name: str):
-        return tel.span(name, kind="sharded")
+    span = tele.stage_spans(tel, {"kind": "sharded"})
 
     def round_step(state: FLState, batch, rng):
         params = state.params

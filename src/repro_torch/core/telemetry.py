@@ -42,6 +42,7 @@ from repro_torch.core.funnel_logging import _EPHEMERAL_LABEL_KEYS, \
 __all__ = [
     "Telemetry", "SpanRecord", "TelemetryCounterView",
     "DURATION_BUCKETS_S", "SIZE_BUCKETS", "get_default", "set_default",
+    "stage_spans",
 ]
 
 # Fixed bucket layouts (histogram upper bounds).  Geometric, so one layout
@@ -101,6 +102,10 @@ class _NullSpan:
 
 
 _NULL_SPAN = _NullSpan()
+
+
+def _no_span(name: str, **labels):
+    return _NULL_SPAN
 
 
 def _holds_cuda(value) -> bool:
@@ -331,3 +336,19 @@ def set_default(tel: Telemetry) -> Telemetry:
     global _default
     prev, _default = _default, tel
     return prev
+
+
+def stage_spans(telemetry: Optional[Telemetry] = None,
+                labels: Optional[Mapping[str, Any]] = None):
+    """``span(name, **more)``: a stage span on ``telemetry`` (default: the
+    process registry) carrying the caller's ``labels``, then ``more``.  A
+    registry that records no spans gets the shared null span, with no label
+    dict built."""
+    tel = telemetry if telemetry is not None else get_default()
+    if not tel.record_spans:
+        return _no_span
+    labels = labels or {}
+
+    def span(name: str, **more):
+        return tel.span(name, **labels, **more)
+    return span

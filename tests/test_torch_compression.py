@@ -305,14 +305,20 @@ def test_rate_one_is_the_identity_path(mode):
     assert torch.equal(out[0], out[1])
 
 
-def test_compression_mismatch_names_both_specs():
+@pytest.mark.parametrize("engine", ["async", "tier-flat", "tier-tree"])
+def test_compression_mismatch_names_both_specs(engine):
     fl = _fl(secure_agg_bits=16, compress_mode="sketch", compress_rate=0.25)
-    _, ts = _servers("client", fl)
+    if engine == "async":
+        _, ts = _servers("client", fl)
+    else:
+        ts, _ = _tiers("client", fl, engine == "tier-tree")
+    peer = "server" if engine == "async" else "tier"
     cp = ts.encode_push(_tt(_deltas(1)[0]), 0)
     bad = cp._replace(compression=comp.CompressionSpec("subsample", 0.5),
                       token=0)
-    with pytest.raises(ValueError, match=r"subsample@rate=0\.5.*"
-                       r"sketch@rate=0\.25"):
+    with pytest.raises(ValueError, match=rf"subsample@rate=0\.5 but the "
+                       rf"{peer}'s session expects sketch@rate=0\.25: .* "
+                       rf"client and {peer} must agree"):
         ts.push_encoded(bad)
     with pytest.raises(ValueError, match=r"identity.*sketch@rate=0\.25"):
         ts.push_encoded(cp._replace(compression=comp.CompressionSpec(),

@@ -108,10 +108,10 @@ def _jflat(mode, quorum=0.0, buffer_size=4):
                             mask_mode=mode, strict=False)
 
 
-def _tier(mode, two_level, fl=FL):
+def _tier(mode, two_level, fl=FL, strict=False):
     return ShardedAsyncServer(_params(), fl, num_leaves=2, leaf_buffer=2,
                               mask_mode=mode, two_level=two_level,
-                              strict=False, device="cpu")
+                              strict=strict, device="cpu")
 
 
 def _replay_survivors(inj, ds, mk):
@@ -297,11 +297,19 @@ def test_raw_push_idempotence_and_reorder():
     assert _diff(srv.params, want) == 0.0
 
 
-def test_strict_raises_where_degraded_mode_counts_and_drops():
+@pytest.mark.parametrize("engine", ["async", "tier-flat", "tier-tree"])
+def test_strict_raises_where_degraded_mode_counts_and_drops(engine):
+    """Both engines reject a stale push (raise or count-and-drop) and a
+    wrong field modulus (always raise), naming their own side."""
     ds = _deltas(2)
+    peer = "server" if engine == "async" else "tier"
     for strict in (True, False):
-        srv = AsyncServer(_params(), FL, buffer_size=2, mask_mode="client",
-                          strict=strict, device="cpu")
+        if engine == "async":
+            srv = AsyncServer(_params(), FL, buffer_size=2,
+                              mask_mode="client", strict=strict,
+                              device="cpu")
+        else:
+            srv = _tier("client", engine == "tier-tree", strict=strict)
         cp = srv.encode_push(ds[0], 0, slot=0)
         srv.version += 1  # the session rolls before the push arrives
         if strict:
@@ -312,6 +320,11 @@ def test_strict_raises_where_degraded_mode_counts_and_drops():
             assert srv.fault_metrics["rejected_pushes"] == 1
         with pytest.raises(ValueError, match="field modulus"):
             srv.push_encoded(cp._replace(version=srv.version, modulus=123))
+        with pytest.raises(ValueError, match=f"field modulus 256 .* but "
+                           f"the {peer}'s session field .* client and "
+                           f"{peer} must agree"):
+            srv.push_encoded(cp._replace(version=srv.version,
+                                         modulus=1 << 8))
 
 
 # --- quorum / deadline degradation ------------------------------------------

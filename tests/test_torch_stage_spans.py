@@ -6,6 +6,9 @@ tile counter, and the span clock's anchor on a profiler trace.
   ``decode.recover`` per chunk on a recovering masked flush only,
   ``decode.finalize`` and ``decode.server``; every stage carries its
   engine span's ``round`` (and a push's ``slot``);
+- ``ShardedAsyncServer``'s ``ingest``/``encode_push``/``push_encoded``,
+  ``flush`` and ``decode`` carry ``round, topology, engine, eid`` in that
+  order, in both topologies;
 - a registry that records no spans records none and changes no bit;
 - ``prf_host_tiles{rounds}`` counts each pass of the three host tile loops;
   a ``jax.random`` draw runs its loop on the CPU only (a meta or fake draw
@@ -20,6 +23,7 @@ import torch
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import telemetry as tele
 from repro_torch.core.fl.async_fl import AsyncServer
+from repro_torch.core.fl.hierarchy import ShardedAsyncServer
 from repro_torch.core.telemetry import Telemetry
 from repro_torch.kernels import prf
 from repro_torch.testing import pin_cpu_threads
@@ -106,6 +110,60 @@ def test_push_and_flush_stage_spans(mode):
                 if k.name == "decode.sum"] == list(range(chunks))
     assert all(s.labels["chunks"] == chunks for s in spans
                if s.name == "push.encode")
+
+
+# the tier's engine spans: each one's own label keys after the session's
+TIER_SPAN_KEYS = {"ingest": ("k", "lane"), "encode_push": ("k",),
+                  "push_encoded": ("k",), "flush": ("forced", "fill"),
+                  "decode": ("recovery", "fill"),
+                  "push.clip": ("slot",), "push.encode": ("slot", "chunks")}
+TIER_SESSION_KEYS = ("round", "topology", "engine", "eid")
+
+
+def _stacked(lo, hi):
+    ds = [_delta(i) for i in range(lo, hi)]
+    return {k: torch.stack([d[k] for d in ds]) for k in ("w", "b")}
+
+
+@pytest.mark.parametrize("two_level", [False, True], ids=["flat", "tree"])
+@pytest.mark.parametrize("mode", ["tee_stream", "client"])
+def test_tier_engine_spans_and_label_keys(mode, two_level):
+    """``ShardedAsyncServer`` (one process, 2 leaves x 2 slots): a batch
+    of 3, the deadline flush, then a batch of 4 that completes the
+    session.  Every engine span carries ``round, topology, engine, eid``
+    in that order, then its own keys; the one-process tier records no
+    per-rank flush stages."""
+    tel = Telemetry(record_spans=True, fence=True)
+    srv = ShardedAsyncServer(_params(), FL, num_leaves=2, leaf_buffer=2,
+                             mask_mode=mode, two_level=two_level,
+                             telemetry=tel, device="cpu")
+    srv.push(_stacked(0, B - 1), srv.version)
+    assert srv.flush(force=True)
+    srv.push(_stacked(10, 10 + B), srv.version)
+    assert srv.version == 2
+    spans = [s for s in tel.spans if s.name in TIER_SPAN_KEYS]
+    ingest = ["ingest"] if mode == "tee_stream" else ["encode_push",
+                                                      "push_encoded"]
+    assert [s.name for s in spans if "." not in s.name] == \
+        ingest + ["decode", "flush"] + ingest + ["decode"]
+    assert {s.name for s in tel.spans} == set(TIER_SPAN_KEYS) - (
+        {"encode_push", "push_encoded"} if mode == "tee_stream"
+        else {"ingest"})
+    topology = "tree" if two_level else "flat"
+    for s in spans:
+        assert tuple(s.labels) == TIER_SESSION_KEYS + TIER_SPAN_KEYS[s.name]
+        assert (s.labels["topology"], s.labels["engine"],
+                s.labels["eid"]) == (topology, "tier", srv._eid)
+    rounds = [s.labels["round"] for s in spans if "." not in s.name]
+    assert rounds == [0] * (len(ingest) + 2) + [1] * (len(ingest) + 1)
+    assert [s.labels["slot"] for s in spans if s.name == "push.clip"] == \
+        list(range(B - 1)) + list(range(B))
+    decodes = [s for s in spans if s.name == "decode"]
+    assert [(d.labels["recovery"], d.labels["fill"]) for d in decodes] == \
+        [(True, B - 1), (False, B)]
+    flush = next(s for s in spans if s.name == "flush")
+    assert (flush.labels["forced"], flush.labels["fill"]) == (True, B - 1)
+    assert decodes[0].parent == flush.sid
 
 
 @pytest.mark.parametrize("mode", ["tee_stream", "client"])
