@@ -148,7 +148,12 @@ Phases (each prints its seconds):
      ``PEAK_BAND`` of the card's own for that work;
   3. D2 (``csrc/row_sum.cu``, the flush's modular row sum) bit-equal to the
      CPU's int64 loop on ``testing.ROW_SUM_CASES`` and to the plain chain
-     on the card at 10 rows of 2^25 (all, 9 of 10, an unaligned view); the
+     on the card at 10 rows of 2^25 (all, 9 of 10, an unaligned view); D3
+     (``csrc/pair_sum.cu``, the signed sum of pair streams behind every
+     mask and recovery sweep on the card) bit-equal to the host tile loop
+     on ``testing.PAIR_SUM_CASES`` (on the CPU), at a whisper-tiny
+     version's two recovery sweeps and at one 9-pair sweep over
+     mamba2-780m's largest chunk (the loop run on the card); the
      exact kernel launch counts of each path (and zero plain-version
      calls): D2 once a chunk of every streamed flush (the tier: of each
      rank's rows, flat, or each leaf's, tree; the protocol's two flushes);
@@ -184,7 +189,10 @@ Phases (each prints its seconds):
      on the card; D2 at 10 rows of 2^25, at ``agg.mamba2-780m.tee``'s
      flush (every chunk of a version, 10 rows each) and at its largest
      chunk (10 x 475,398,144), beside its byte bound, the plain chain on
-     the card and ``torch.sum(rows.to(int64), 0)``.
+     the card and ``torch.sum(rows.to(int64), 0)``; D3 at a whisper-tiny
+     version's recovery (18 pair streams), at 9 pairs x 2^25 and at 9
+     pairs x 475,398,144, beside its Threefry-13 bound (45 instructions an
+     evaluation) and the host tile loop it replaced, run on the card.
 
 Phase 1 also holds K9 (``bit_counts``) bit-equal to its plain version
 (ragged N and F, T up to 256, p in {0, 0.1, 0.5, 1}, boundary uniforms, NaN
@@ -353,6 +361,13 @@ DRAW_ARCH, DRAW_SEQ, DRAW_N = "whisper-tiny", 64, 36_472_704
 # of 2^25, and on agg.mamba2-780m.tee's flush: mamba2-780m's plan in
 # chunks of 2^25 (whole leaves, padded to 512), 10 rows each
 SUM_ROWS, SUM_D, SUM_ARCH, SUM_PARAMS = 10, 1 << 25, "mamba2-780m", 780_148_992
+# phases 3 and 4: D3 (the signed sum of pair streams) at a whisper-tiny
+# version's recovery (one absent slot of 10, so 9 edges, in each chunk of
+# its 2^25 plan, added into the chunk sums' padded rows), and at one sweep
+# of those 9 edges over mamba2-780m's largest chunk
+SWEEP_SLOTS, SWEEP_ABSENT = 10, 6
+SWEEP_CHUNKS = ((1 << 25, 1 << 25), (DRAW_N - (1 << 25), 2_918_400))
+SWEEP_BIG = 475_398_144
 # phase 2j: the cost harness (repro_torch.launch.dryrun) at full width on
 # the production 16 x 16 mesh, one shape per arch (decode_32k: the whole
 # --all sweep takes ~8.5 min of host time) and the recorded skip; then the
@@ -3152,6 +3167,113 @@ def row_sum_parity(torch) -> None:
         "plain chain on the card")
 
 
+def _sweep(torch, c: int, length: int, width: int):
+    """``(key, lo, hi, gains)`` of a recovery sweep of ``SWEEP_SLOTS`` with
+    slot ``SWEEP_ABSENT`` absent under chunk ``c``'s key, and a random int32
+    row of ``width`` words (a chunk's padded sum) on the card."""
+    from repro_torch.core.fl import secure_agg as sa
+    from repro_torch.kernels import prf
+    lo, hi = sa.session_pairs(SWEEP_SLOTS)
+    gains = [(b == SWEEP_ABSENT) - (a == SWEEP_ABSENT) for a, b in zip(lo, hi)]
+    g = torch.Generator(device="cuda").manual_seed(7 + c)
+    row = torch.randint(-2 ** 31, 2 ** 31, (width,), generator=g,
+                        dtype=torch.int32, device="cuda")
+    return prf.fold_in(prf.PRNGKey(11), c), lo, hi, gains, row
+
+
+def pair_sum_parity(torch) -> None:
+    """D3 bit-equal to the host tile loop: ``testing.PAIR_SUM_CASES``
+    against the loop on the CPU, fresh and added into their rows; a
+    whisper-tiny version's two recovery sweeps (9 pairs over 2^25 and over
+    2,918,272 words, added into padded rows) and one 9-pair sweep over
+    ``SWEEP_BIG`` words against the same int64 loop run on the card."""
+    from repro_torch.kernels import prf
+    from repro_torch.testing import PAIR_SUM_CASES, pair_sum_case
+    for name in PAIR_SUM_CASES:
+        key, lo, hi, gains, length, row = pair_sum_case(name, "cuda")
+        want = row.cpu()
+        prf.signed_pair_sum(*key, lo, hi, gains, length, out=want)
+        check(torch.equal(prf.signed_pair_sum(*key, lo, hi, gains, length,
+                                              out=row).cpu(), want),
+              f"pair_sum {name}: the card != the CPU")
+    sweeps = [(c, length, width) for c, (length, width)
+              in enumerate(SWEEP_CHUNKS)] + [(2, SWEEP_BIG, SWEEP_BIG)]
+    for c, length, width in sweeps:
+        key, lo, hi, gains, row = _sweep(torch, c, length, width)
+        want = row.clone()
+        launches = prf.signed_pair_sum.launches
+        prf.signed_pair_sum(*key, lo, hi, gains, length, out=row)
+        check(prf.signed_pair_sum.launches == launches + 1,
+              f"pair_sum {length:,}: "
+              f"{prf.signed_pair_sum.launches - launches} launches")
+        prf.signed_pair_sum_plain(*key, lo, hi, gains, length, out=want)
+        check(torch.equal(row, want),
+              f"pair_sum 9 pairs x {length:,}: the kernel != the tile loop "
+              "on the card")
+        del row, want
+        empty_cache(torch)
+    log(f"  pair_sum: {len(PAIR_SUM_CASES)} cases bit-equal to the CPU; "
+        f"9 pairs x {[n for n, _ in SWEEP_CHUNKS]} (a whisper-tiny version, "
+        f"into padded rows) and x {SWEEP_BIG:,} bit-equal to the tile loop "
+        "on the card")
+
+
+def pair_sum_times(torch, smi: str) -> list:
+    """D3's device time (calls queued behind a sleep kernel) at a
+    whisper-tiny version's recovery (its two sweeps, added into the chunk
+    sums), at one 9-pair sweep over 2^25 words and over ``SWEEP_BIG``; each
+    beside its bound (45 integer instructions a Threefry-2x32-13,
+    ``analysis.THREEFRY_OPS``, one a counter and pair, over the issue rate,
+    against the words written, and read where added, over 3.35 TB/s) and
+    the host tile loop it replaced, run on the card (CUDA events)."""
+    from repro_torch.kernels import prf
+    from repro_torch.launch import analysis
+    src = "src/repro_torch/kernels/csrc/pair_sum.cu"
+    replaces = "none (XLA generated the reference's recovery sweep)"
+
+    def entry(what, lengths, ms, plain_ms, add):
+        ops = sum(analysis.THREEFRY_OPS * 9 * ((n + 1) // 2)
+                  for n in lengths)
+        nbytes = sum((8 if add else 4) * n for n in lengths)
+        e = _entry("pair_sum", src, replaces, None, ms, plain_ms, ops,
+                   nbytes, integer=True)
+        e.update(shape=what, pairs=9 * len(lengths))
+        log(f"  pair_sum {what}: {ms:.4f} ms on the device (bound "
+            f"{e['bound_ms']:.4f} ms by {e['bound_by']}, "
+            f"{e['bound_ms'] / ms:.2f} of it); tile loop on the card "
+            f"{plain_ms:.1f} ms; {smi}")
+        return e
+
+    out = []
+    version = [_sweep(torch, c, n, w)
+               for c, (n, w) in enumerate(SWEEP_CHUNKS)]
+    lengths = [n for n, _ in SWEEP_CHUNKS]
+
+    def sweep_version(fn):
+        for (key, lo, hi, gains, row), n in zip(version, lengths):
+            fn(*key, lo, hi, gains, n, out=row)
+    out.append(entry(f"whisper-tiny version (9 pairs x {lengths}, added "
+                     "into the chunk sums)", lengths,
+                     _device_ms(torch, lambda: sweep_version(
+                         prf.signed_pair_sum), 20),
+                     _cuda_ms(torch, lambda: sweep_version(
+                         prf.signed_pair_sum_plain), 3), True))
+    key, lo, hi, gains, _ = version[0]
+    del version
+    empty_cache(torch)
+    for n in (1 << 25, SWEEP_BIG):
+        def fresh(fn, n=n):
+            fn(*key, lo, hi, gains, n, device="cuda")
+        out.append(entry(f"9 pairs x {n:,}", [n],
+                         _device_ms(torch, lambda: fresh(
+                             prf.signed_pair_sum), 10 if n < SWEEP_BIG
+                             else 3),
+                         _cuda_ms(torch, lambda: fresh(
+                             prf.signed_pair_sum_plain), 1), False))
+        empty_cache(torch)
+    return out
+
+
 def _sum_chunks():
     """The padded chunk widths of ``SUM_ARCH``'s plan at ``SUM_D``."""
     import torch
@@ -3389,6 +3511,7 @@ def main() -> int:
     with Phase("phase 3: kernels on the main path"):
         from repro_torch.kernels import secure_agg as ksa
         row_sum_parity(torch)
+        pair_sum_parity(torch)
         # launches per path: one per chunk of every push (or flush) that
         # runs the kernel; 14 pushes and 2 flushes per run
         per_run = EXPECT_CHUNKS * (BUFFER + 6)
@@ -3561,6 +3684,7 @@ def main() -> int:
         entries.append(bitagg_time(torch, launches, smi))
         entries += jax_random_times(torch, launches["jax_random"], smi)
         entries += row_sum_times(torch, launches["row_sum"], smi)
+        entries += pair_sum_times(torch, smi)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

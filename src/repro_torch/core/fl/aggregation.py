@@ -594,8 +594,7 @@ def aggregate_masked_buffer(mbuf: torch.Tensor, present, total_weight,
         pres = sa.present_flags(present)
         acc = sum_rows(mbuf, [p == 1 for p in pres])
         if masked:
-            rec = session.recovery((D,), pres, device=mbuf.device)
-            acc = prf.to_int32(prf.words_of(acc) + prf.words_of(rec))
+            session.recovery((D,), pres, out=acc)
     else:
         acc = sum_rows(mbuf)
     return finalize_aggregate(acc, total_weight, spec,
@@ -617,8 +616,7 @@ def _encode_compressed(xw: torch.Tensor, ck: ChunkSpec, op: comp.ChunkOps,
     row = q_full.index_select(0, op.idx)
     del q_full
     if masked:
-        m = sessions[c].mask((wc.size,), slot, device=dev)
-        row = prf.to_int32(prf.words_of(row) + prf.words_of(m))
+        sessions[c].mask((wc.size,), slot, out=row)
     if wc.padded > wc.size:
         row = torch.nn.functional.pad(row, (0, wc.padded - wc.size))
     return row
@@ -643,7 +641,8 @@ def aggregate_plan_masked_buffer(bufs: Sequence[torch.Tensor], present,
 
     ``present`` is host metadata (one flag per slot).  With ``recover``,
     absent rows are gated out and (``masked``) each chunk's recovery sweep
-    re-adds the absent slots' mask shares at the unpadded WIRE width;
+    adds the absent slots' mask shares into the chunk's sum in place, at
+    the unpadded WIRE width (the padded tail left as it is);
     without it the session is known complete and the masks cancel in the
     plain sum.  ``ops`` decodes operator-domain (compressed) buffers.
     ``telemetry`` (default: the process registry) records the fenced
@@ -661,11 +660,7 @@ def aggregate_plan_masked_buffer(bufs: Sequence[torch.Tensor], present,
             sp.fence(acc)
         if recover and masked:
             with span("decode.recover", chunk=c) as sp:
-                rec = sessions[c].recovery((wc.size,), pres,
-                                           device=mbuf.device)
-                if wc.padded > wc.size:
-                    rec = torch.nn.functional.pad(rec, (0, wc.padded - wc.size))
-                acc = prf.to_int32(prf.words_of(acc) + prf.words_of(rec))
+                sessions[c].recovery((wc.size,), pres, out=acc)
                 sp.fence(acc)
         accs.append(acc)
     with span("decode.finalize") as sp:

@@ -92,13 +92,6 @@ def root_session(spec, session_key, num_leaves: int) -> sa.MaskSession:
         num_slots=num_leaves)
 
 
-def _pad_to(x: torch.Tensor, width: int) -> torch.Tensor:
-    """Zero-pad a chunk-sized vector up to its storage width."""
-    if x.shape[-1] == width:
-        return x
-    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
-
-
 def _as_chunks(buf) -> tuple:
     return tuple(buf) if isinstance(buf, (tuple, list)) else (buf,)
 
@@ -316,9 +309,8 @@ def build_sharded_masked_step(params, fl_cfg, *, num_leaves: int,
                         agg.make_mask_session(spec, ckeys[c]), W)
                     per = len(lo) // W
                     mine = slice(rank * per, (rank + 1) * per)
-                    agg.add_mod32_(acc, _pad_to(sa.recovery_sweep(
-                        (wc.size,), pres, lo[mine], hi[mine], ckeys[c],
-                        ew[mine], device=dev), wc.padded))
+                    sa.recovery_sweep((wc.size,), pres, lo[mine], hi[mine],
+                                      ckeys[c], ew[mine], out=acc)
                 accs.append(acc)
             sp.fence(accs)
         accs = combine(accs, mesh, tel, **labels)
@@ -453,22 +445,17 @@ def build_two_level_masked_step(params, fl_cfg, *, num_leaves: int,
                         # fault isolation: only this leaf's edges, gated
                         # by only this leaf's presence
                         lsess = leaf_session(spec, ckeys[c], leaf, Bl)
-                        agg.add_mod32_(part, _pad_to(
-                            lsess.recovery((wc.size,), leaf_pres[leaf],
-                                           device=dev), wc.padded))
+                        lsess.recovery((wc.size,), leaf_pres[leaf], out=part)
                         if alive[leaf]:
-                            agg.add_mod32_(part, _pad_to(
-                                rsess.mask((wc.size,), leaf, device=dev),
-                                wc.padded))
+                            rsess.mask((wc.size,), leaf, out=part)
                     acc = _root_add(acc, part)
                 accs.append(acc)
             sp.fence(accs)
         accs = combine(accs, mesh, tel, **labels)
         if sweep:  # a dead leaf is one absent root slot
             for c, wc in enumerate(wire):
-                agg.add_mod32_(accs[c], _pad_to(
-                    root_session(spec, ckeys[c], L).recovery(
-                        (wc.size,), alive, device=dev), wc.padded))
+                root_session(spec, ckeys[c], L).recovery((wc.size,), alive,
+                                                         out=accs[c])
         wts, stal, nrm, clp = gather_slots(mesh, weights, staleness, norms,
                                             clips)
         return _finalize_root(params, opt_state, accs, wts * pres_t, nrm,

@@ -237,21 +237,28 @@ def _shape(shape) -> Tuple[int, ...]:
     return (int(shape),) if isinstance(shape, int) else tuple(shape)
 
 
+def _pair_sum(k0: int, k1: int, lo, hi, gains, shape, device,
+              out: Optional[torch.Tensor]) -> torch.Tensor:
+    """``prf.signed_pair_sum`` over ``shape``'s elements: a fresh tensor
+    shaped ``shape``, or added into ``out``'s first words in place."""
+    m = prf.signed_pair_sum(k0, k1, lo, hi, gains, _size(shape),
+                            device=device, out=out)
+    return m if out is not None else m.reshape(_shape(shape))
+
+
 def _signed_pair_sum(k0: int, k1: int, slot: int, others: Sequence[int],
-                     shape, *, device=None) -> torch.Tensor:
+                     shape, *, device=None,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``sum_d sign(d - slot) * stream(pair(slot, d))`` over ``others``
-    (host ints), mod 2^32, shaped ``shape``.  A diagonal entry ``d ==
-    slot`` gates itself out with sign 0.  The pair streams are generated
-    in tiles over (pairs x positions) and summed in int64
-    (``prf.signed_pair_sum``), so no ``(len(others), D)`` block exists."""
+    (host ints), mod 2^32, shaped ``shape`` (or added into ``out``).  A
+    diagonal entry ``d == slot`` gates itself out with sign 0.  No
+    ``(len(others), D)`` block exists (``prf.signed_pair_sum``)."""
     slot = int(slot)
     others = [int(d) for d in others]
     lo = [min(slot, d) for d in others]
     hi = [max(slot, d) for d in others]
     sign = [(d > slot) - (d < slot) for d in others]
-    m = prf.signed_pair_sum(k0, k1, lo, hi, sign, _size(shape),
-                            device=device)
-    return m.reshape(_shape(shape))
+    return _pair_sum(k0, k1, lo, hi, sign, shape, device, out)
 
 
 def pairwise_mask(shape, client_id: int, peer_ids: Sequence[int], seed: int,
@@ -307,12 +314,14 @@ def secure_aggregate(updates: Sequence[torch.Tensor], bits: int,
 
 
 def session_mask(shape, slot: int, num_slots: int, key,
-                 degree: int = 0, perm=None, *, device=None) -> torch.Tensor:
-    """Pairwise int32 mask of session position ``slot`` (shape ``shape``)."""
+                 degree: int = 0, perm=None, *, device=None,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pairwise int32 mask of session position ``slot`` (shape ``shape``;
+    with ``out``, added into its first words in place, mod 2^32)."""
     k0, k1 = prf.key_words(key)
     return _signed_pair_sum(k0, k1, slot,
                             _neighbor_slots(slot, num_slots, degree, perm),
-                            shape, device=device)
+                            shape, device=device, out=out)
 
 
 def session_masks(shape, num_slots: int, key, degree: int = 0, perm=None, *,
@@ -330,27 +339,30 @@ def present_flags(present) -> List[int]:
 
 
 def recovery_sweep(shape, present, lo: Sequence[int], hi: Sequence[int], key,
-                   w: Optional[Sequence[int]] = None, *,
-                   device=None) -> torch.Tensor:
+                   w: Optional[Sequence[int]] = None, *, device=None,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sum of ``(present[hi] - present[lo]) * stream(lo, hi)`` over edges.
 
     Only edges with exactly one endpoint present contribute (and ``w``
     zeroes padding edges); each contributing stream is generated once.
+    With ``out`` (a contiguous int32 row, e.g. a chunk's padded sum) the
+    sweep is added into its first ``prod(shape)`` words in place, mod 2^32,
+    and ``out`` is returned.
     """
     pres = present_flags(present)
     k0, k1 = prf.key_words(key)
     wts = [1] * len(lo) if w is None else [int(x) for x in w]
     gains = [(pres[b] - pres[a]) * x for a, b, x in zip(lo, hi, wts)]
-    m = prf.signed_pair_sum(k0, k1, lo, hi, gains, _size(shape),
-                            device=device)
-    return m.reshape(_shape(shape))
+    return _pair_sum(k0, k1, lo, hi, gains, shape, device, out)
 
 
 def recovery_mask(shape, present, num_slots: int, key, degree: int = 0,
-                  perm=None, *, device=None) -> torch.Tensor:
+                  perm=None, *, device=None,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sum of the session masks of the ABSENT slots (dropout shares)."""
     lo, hi = session_pairs(num_slots, degree, perm)
-    return recovery_sweep(shape, present, lo, hi, key, device=device)
+    return recovery_sweep(shape, present, lo, hi, key, device=device,
+                          out=out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -382,17 +394,19 @@ class MaskSession:
     def edges(self):
         return session_pairs(self.num_slots, self.degree, self.perm)
 
-    def mask(self, shape, slot: int, *, device=None) -> torch.Tensor:
+    def mask(self, shape, slot: int, *, device=None,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
         return session_mask(shape, slot, self.num_slots, self.key,
-                            self.degree, self.perm, device=device)
+                            self.degree, self.perm, device=device, out=out)
 
     def masks(self, shape, *, device=None) -> torch.Tensor:
         return session_masks(shape, self.num_slots, self.key, self.degree,
                              self.perm, device=device)
 
-    def recovery(self, shape, present, *, device=None) -> torch.Tensor:
+    def recovery(self, shape, present, *, device=None,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
         return recovery_mask(shape, present, self.num_slots, self.key,
-                             self.degree, self.perm, device=device)
+                             self.degree, self.perm, device=device, out=out)
 
     @property
     def wire_bits(self) -> int:

@@ -25,7 +25,8 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("quantize_mask_prf", "weighted_quantize_accum",
            "rotate_quantize_prf", "pack_residues", "flash_decode",
-           "dp_clip", "quantize_mask", "bitagg", "jax_random", "row_sum")
+           "dp_clip", "quantize_mask", "bitagg", "jax_random", "row_sum",
+           "pair_sum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

@@ -23,7 +23,10 @@ time): a full-width model chunk has hundreds of millions of positions and an
 untiled ``int64`` stream of that size would need tens of GB.  The streams are
 counter-based and the sums are mod 2^32, so tiling is bit-identical.  Each
 pass of a tile loop (one batch of ~150 int64 torch launches) adds 1 to the
-process registry's counter ``prf_host_tiles{rounds=13|20}``.
+process registry's counter ``prf_host_tiles{rounds=13|20}``.  On a CUDA
+tensor a signed sum of pair streams (:func:`signed_pair_sum`: every mask and
+every dropout-recovery sweep) is instead one launch of ``csrc/pair_sum.cu``,
+which adds the pairs it sums to ``prf_device_pairs{rounds=13}``.
 
 ``split``, ``random_bits``, ``uniform``, ``normal``, ``randint`` and
 ``permutation`` rebuild JAX's own draws (the threefry implementation with
@@ -43,7 +46,7 @@ import ctypes
 import functools
 import math
 import struct
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -215,36 +218,133 @@ def uniform_block(uk0, uk1, length: int, *, offset: int = 0,
                   torch.float32, bits_to_uniform)
 
 
+def _live_pairs(lo, hi, gains) -> list:
+    """``(lo, hi, gain)`` host ints of the pairs with a gain other than 0."""
+    return [(int(a), int(b), int(g)) for a, b, g in zip(lo, hi, gains)
+            if int(g) != 0]
+
+
+def _pair_sum_row(out: torch.Tensor, length: int) -> torch.Tensor:
+    """The first ``length`` words of ``out``, the row an accumulating pair
+    sum adds into in place."""
+    if out.dtype != torch.int32 or not out.is_contiguous() \
+            or out.numel() < length:
+        raise ValueError(f"a pair sum adds into a contiguous int32 row of at "
+                         f"least {length} words, got {out.dtype} "
+                         f"{tuple(out.shape)} strides {out.stride()}")
+    return out.view(-1)[:length]
+
+
+def signed_pair_sum_plain(k0: int, k1: int, lo: Sequence[int],
+                          hi: Sequence[int], gains: Sequence[int],
+                          length: int, *, device=None,
+                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`signed_pair_sum`'s plain version on any device: the pair
+    streams generated in tiles of at most ``TILE`` words over (pairs x
+    positions), accumulated in int64 (from ``out``'s words, where given)
+    and wrapped once."""
+    sel = _live_pairs(lo, hi, gains)
+    if out is not None:
+        row = _pair_sum_row(out, length)
+        acc = words_of(row)
+    else:
+        acc = torch.zeros((length,), dtype=torch.int64, device=device)
+    if sel and length:
+        dev = acc.device
+        keys = [pair_keys(k0, k1, a, b) for a, b, _ in sel]
+        pk0 = torch.tensor([k[0] for k in keys], dtype=torch.int64,
+                           device=dev)
+        pk1 = torch.tensor([k[1] for k in keys], dtype=torch.int64,
+                           device=dev)
+        g = torch.tensor([s for _, _, s in sel], dtype=torch.int64,
+                         device=dev)
+        group = max(1, min(len(sel), TILE // 4096))
+        step = max(2, (TILE // group) & ~1)
+        _count_tiles(-(-len(sel) // group) * -(-length // step),
+                     DEFAULT_ROUNDS)
+        for p in range(0, len(sel), group):
+            q = min(len(sel), p + group)
+            for s in range(0, length, step):
+                t = min(length, s + step)
+                w = words(pk0[p:q], pk1[p:q], s, t)
+                acc[s:t] += (g[p:q, None] * w).sum(0)
+    if out is None:
+        return to_int32(acc)
+    row.copy_(to_int32(acc))
+    return out
+
+
+@functools.cache
+def _pair_sum_launcher():
+    from repro_torch.kernels import _build
+    fn = _build.load("pair_sum").pair_sum_launch
+    fn.argtypes = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p,
+                   ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_int32, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def signed_pair_sum(k0: int, k1: int, lo: Sequence[int], hi: Sequence[int],
-                    gains: Sequence[int], length: int, *,
-                    device=None) -> torch.Tensor:
+                    gains: Sequence[int], length: int, *, device=None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``sum_p gains[p] * stream(pair_key(lo[p], hi[p]))`` mod 2^32 -> int32.
 
-    The shared core of every host-side mask: a slot's session mask (gains =
-    +1 below / -1 above / 0 on the diagonal) and the dropout-recovery sweep
-    (gains = present[hi] - present[lo]).  Pairs with gain 0 contribute
-    nothing and are skipped.  Generated in tiles of at most ``TILE`` words
-    over (pairs x positions), accumulated in int64 and wrapped once.
+    The shared core of every mask: a slot's session mask (gains = +1 below
+    / -1 above / 0 on the diagonal) and the dropout-recovery sweep (gains =
+    present[hi] - present[lo]).  Pairs with gain 0 contribute nothing and
+    are skipped.  Returns a fresh ``(length,)`` row; with ``out`` (a
+    contiguous int32 tensor of at least ``length`` words, whose device it
+    takes) the sum is added into ``out``'s first ``length`` words in place,
+    mod 2^32, the rest left as it was, and ``out`` is returned.
+
+    Dispatch is by device, never by a flag: on the CPU the plain version,
+    the host tile loop (:func:`signed_pair_sum_plain`, counted by
+    ``prf_host_tiles{rounds=13}``); on a CUDA tensor one launch of
+    ``csrc/pair_sum.cu`` (D3), which derives the pair keys on the card, or
+    a raise; each launch adds the pairs it sums to the process registry's
+    ``prf_device_pairs{rounds=13}``; an abstract tensor records the
+    kernel's operations and bytes and launches nothing.
     """
-    sel = [(int(a), int(b), int(g)) for a, b, g in zip(lo, hi, gains)
-           if int(g) != 0]
-    acc = torch.zeros((length,), dtype=torch.int64, device=device)
-    if not sel or length == 0:
-        return to_int32(acc)
-    keys = [pair_keys(k0, k1, a, b) for a, b, _ in sel]
-    pk0 = torch.tensor([k[0] for k in keys], dtype=torch.int64, device=device)
-    pk1 = torch.tensor([k[1] for k in keys], dtype=torch.int64, device=device)
-    g = torch.tensor([s for _, _, s in sel], dtype=torch.int64, device=device)
-    group = max(1, min(len(sel), TILE // 4096))
-    step = max(2, (TILE // group) & ~1)
-    _count_tiles(-(-len(sel) // group) * -(-length // step), DEFAULT_ROUNDS)
-    for p in range(0, len(sel), group):
-        q = min(len(sel), p + group)
-        for s in range(0, length, step):
-            t = min(length, s + step)
-            w = words(pk0[p:q], pk1[p:q], s, t)
-            acc[s:t] += (g[p:q, None] * w).sum(0)
-    return to_int32(acc)
+    if out is None:
+        dst = res = torch.empty((length,), dtype=torch.int32, device=device)
+    else:
+        dst, res = _pair_sum_row(out, length), out
+    sel = _live_pairs(lo, hi, gains)
+    if is_abstract(dst):
+        analysis.record_kernel(
+            "pair_sum", ops=0,
+            int_ops=analysis.THREEFRY_OPS * len(sel) * ((length + 1) // 2),
+            nbytes=4 * length * (1 if out is None else 2))
+        return res
+    if dst.device.type == "cpu":
+        return signed_pair_sum_plain(k0, k1, lo, hi, gains, length,
+                                     device=device, out=out)
+    if dst.device.type != "cuda":
+        raise ValueError(f"signed_pair_sum runs on the CPU or a CUDA device, "
+                         f"got {dst.device}")
+    if not sel or not length:
+        return dst.zero_() if out is None else res
+    rows = ([a for a, _, _ in sel], [b for _, b, _ in sel],
+            [((g & M32) ^ 0x80000000) - 0x80000000 for _, _, g in sel])
+    # from pinned memory the copy is queued on the stream: the host does
+    # not wait for it
+    table = torch.tensor(rows, dtype=torch.int32).pin_memory().to(
+        dst.device, non_blocking=True)
+    status = _pair_sum_launcher()(
+        *key_words((k0, k1)), table.data_ptr(), len(sel), length,
+        dst.data_ptr(), int(out is not None),
+        torch.cuda.current_stream(dst.device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"pair_sum kernel launch failed: CUDA error "
+                           f"{status}")
+    signed_pair_sum.launches += 1
+    tele.get_default().count("prf_device_pairs", len(sel),
+                             rounds=DEFAULT_ROUNDS)
+    return res
+
+
+signed_pair_sum.launches = 0
 
 
 # --- jax.random draws -----------------------------------------------------
@@ -339,6 +439,7 @@ _draw.plain_calls = 0
 def reset_counts() -> None:
     _draw.launches = 0
     _draw.plain_calls = 0
+    signed_pair_sum.launches = 0
 
 
 def counts() -> dict:

@@ -151,7 +151,8 @@ def session_mask_plain(slot: int, length: int, session: SessionMeta, *,
     lo = [min(slot, d) for d in others]
     hi = [max(slot, d) for d in others]
     sign = [(d > slot) - (d < slot) for d in others]
-    return prf.signed_pair_sum(k0, k1, lo, hi, sign, length, device=device)
+    return prf.signed_pair_sum_plain(k0, k1, lo, hi, sign, length,
+                                     device=device)
 
 
 def stochastic_round(xf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

@@ -191,6 +191,81 @@ def row_sum_case(name: str, device="cpu"):
     raise KeyError(name)
 
 
+# kernels.prf.signed_pair_sum's cases, shared by its CPU and its card tests:
+# gains of -1, 0 and +1, wide and negative ints, an edge-weighted sweep;
+# complete, ring and permuted session graphs; lengths 0, 1, odd and ragged;
+# rows with a padded tail, a row 4 bytes past 16-byte alignment, and more
+# pairs than the kernel stages at once (256)
+PAIR_SUM_CASES = ("unit-gains", "zero-gains", "wide-gains", "weighted-sweep",
+                  "complete", "ring", "permuted", "len-0", "len-1", "odd",
+                  "ragged-tail", "unaligned", "many-pairs")
+# the card's cases alone (too large for the CPU tests): a whisper-tiny
+# version's two recovery sweeps (one absent slot of 10) and a 40-slot
+# session's sweep with 20 absent (400 pairs)
+PAIR_SUM_CARD_CASES = ("drop-chunk0", "drop-chunk1", "40-slot")
+
+
+def pair_sum_case(name: str, device="cpu"):
+    """``(key, lo, hi, gains, length, row)`` of the case ``name``: the pairs
+    and gains of a sweep and the int32 row it adds into, whose first
+    ``length`` words it sums into.  The row's words are drawn on the CPU
+    from the case's index, the same on every device, and the row is cut on
+    the device from its base."""
+    from repro_torch.core.fl import secure_agg as sa
+    index = (PAIR_SUM_CASES + PAIR_SUM_CARD_CASES).index(name)
+    g = torch.Generator().manual_seed(index)
+    key = (0x1234 + index, 0x5A5E)
+
+    def sweep(n, absent, degree=0, perm=None, w=None):
+        lo, hi = sa.session_pairs(n, degree, perm)
+        pres = [int(s not in absent) for s in range(n)]
+        w = w or [1] * len(lo)
+        return lo, hi, [(pres[b] - pres[a]) * x for a, b, x in zip(lo, hi, w)]
+
+    def row(width, offset=0):
+        base = torch.randint(-2 ** 31, 2 ** 31, (width + offset,),
+                             generator=g, dtype=torch.int32).to(device)
+        return base[offset:]
+
+    one_absent = sweep(10, {3})
+    if name == "unit-gains":  # a recovery: +1 and -1
+        return (key, *one_absent, 1000, row(1024))
+    if name == "zero-gains":
+        lo, hi = sa.session_pairs(6, 0)
+        return key, lo, hi, [0] * len(lo), 515, row(515)
+    if name == "wide-gains":
+        return (key, [0, 0, 1, 2, 3, 4, 5], [1, 5, 2, 7, 4, 9, 6],
+                [7, -123456789, 2 ** 31 + 5, -2 ** 40 + 3, 1, 0, -1], 4099,
+                row(4099))
+    if name == "weighted-sweep":  # a tier rank's edges, padding edges at 0
+        lo, hi = sa.session_pairs(12, 4)
+        return (key, *sweep(12, {2, 7}, 4, w=[i % 3 for i in range(len(lo))]),
+                2050, row(2052))
+    if name == "complete":
+        return (key, *sweep(8, {0, 5}), 2048, row(2048))
+    if name == "ring":
+        return (key, *sweep(16, {1, 8, 9}, 4), 3001, row(3004))
+    if name == "permuted":
+        perm = [(7 * i + 3) % 12 for i in range(12)]
+        return (key, *sweep(12, {4}, 4, perm), 777, row(780))
+    if name in ("len-0", "len-1"):
+        return (key, *one_absent, int(name[-1]), row(4))
+    if name == "odd":
+        return (key, *one_absent, 1023, row(1023))
+    if name == "ragged-tail":  # aligned, length % 4 == 1
+        return (key, *one_absent, 1021, row(1024))
+    if name == "unaligned":
+        return (key, *one_absent, 513, row(520, offset=1))
+    if name in ("many-pairs", "40-slot"):
+        length = 4099 if name == "many-pairs" else (1 << 20) + 3
+        return (key, *sweep(40, set(range(0, 40, 2))), length,
+                row(length + 5))
+    if name in ("drop-chunk0", "drop-chunk1"):
+        length = 1 << 25 if name == "drop-chunk0" else 2_918_272
+        return (key, *sweep(10, {6}), length, row(length + 128))
+    raise KeyError(name)
+
+
 def tree_digest(tree) -> str:
     """SHA-256 over every leaf's bytes in the tree's order (equal digests:
     byte-equal trees)."""

@@ -26,7 +26,9 @@ from repro_torch.kernels import row_sum as krs
 from repro_torch.kernels import secure_agg as ksa
 from repro_torch.launch import serve
 from repro_torch.models.model import build_model
-from repro_torch.testing import ROW_SUM_CASES, pin_cpu_threads, row_sum_case
+from repro_torch.testing import (PAIR_SUM_CARD_CASES, PAIR_SUM_CASES,
+                                 ROW_SUM_CASES, pair_sum_case,
+                                 pin_cpu_threads, row_sum_case)
 
 pin_cpu_threads()
 
@@ -353,6 +355,74 @@ def test_cuda_row_sum_refuses_strided_columns(cuda):
     with pytest.raises(ValueError, match="int32"):
         agg.sum_rows(torch.zeros((4, 64), dtype=torch.int64, device=cuda))
     assert krs.sum_rows.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PAIR_SUM_CASES + PAIR_SUM_CARD_CASES)
+def test_cuda_pair_sum_matches_the_tile_loop(cuda, default_registry, name):
+    """D3 bit-equal to the host tile loop, fresh and added into a row in
+    place (the row's tail untouched): every CPU case (gains, graphs,
+    lengths 0, 1, odd and ragged, a row 4 bytes past alignment, 400 pairs
+    in two shared-memory stages) against the loop on the CPU; the drop
+    cell's two sweeps (9 pairs over 2^25 and over 2,918,272 words) and a
+    40-slot sweep against the same int64 loop run on the card.  One launch
+    a call, counted by ``prf_device_pairs``; no tile loop on the card."""
+    key, lo, hi, gains, length, row = pair_sum_case(name, cuda)
+    pairs = sum(1 for x in gains if x != 0) if length else 0
+    before = row.cpu()
+    tel = default_registry
+    launches = prf.signed_pair_sum.launches
+    fresh = prf.signed_pair_sum(*key, lo, hi, gains, length, device=cuda)
+    assert prf.signed_pair_sum(*key, lo, hi, gains, length, out=row) is row
+    torch.cuda.synchronize()
+    assert prf.signed_pair_sum.launches - launches == 2 * (pairs > 0)
+    assert tel.total("prf_device_pairs") == 2 * pairs
+    assert tel.total("prf_host_tiles") == 0
+    on = "cpu" if name in PAIR_SUM_CASES else cuda
+    want = prf.signed_pair_sum_plain(*key, lo, hi, gains, length, device=on)
+    assert fresh.dtype == torch.int32 and fresh.shape == (length,)
+    assert torch.equal(fresh.cpu(), want.cpu())
+    want = torch.nn.functional.pad(want.cpu(), (0, before.numel() - length))
+    assert torch.equal(row.cpu(), prf.to_int32(prf.words_of(before)
+                                               + prf.words_of(want)))
+    del fresh, row, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_cuda_recovering_flush_matches_the_cpu(cuda, default_registry):
+    """A ``tee_stream`` session of 10 slots with one absent, flushed at
+    the deadline on the card: the CPU's parameters bit for bit; the flush
+    sweeps 9 pairs in each of the two chunks through D3 (18 pairs) and
+    runs no tile loop."""
+    from repro_torch.core.fl.async_fl import AsyncServer
+    fl = FLConfig(clip_norm=1.0, server_lr=1.0, secure_agg_bits=32,
+                  param_chunk_elems=2048)
+    g = torch.Generator().manual_seed(9)
+    params = {"w": torch.zeros(3000), "b": torch.zeros(700)}
+    # norms ~0.6, inside the clip (an active clip's norm sums in another
+    # order on the card)
+    deltas = [{k: 0.01 * torch.randn(v.shape, generator=g)
+               for k, v in params.items()} for _ in range(9)]
+    tel = default_registry
+    out = []
+    for dev in ("cpu", cuda):
+        srv = AsyncServer(params, fl, buffer_size=10, mask_mode="tee_stream",
+                          staleness_mode="constant", device=dev)
+        for d in deltas:
+            srv.push({k: v.to(dev) for k, v in d.items()}, srv.version)
+        assert srv.plan.num_chunks == 2
+        tiles, pairs = tel.total("prf_host_tiles"), tel.total(
+            "prf_device_pairs")
+        assert srv.flush(force=True)
+        torch.cuda.synchronize()
+        out.append((srv.params, tel.total("prf_host_tiles") - tiles,
+                    tel.total("prf_device_pairs") - pairs))
+    (pc, tiles_cpu, pairs_cpu), (pg, tiles_card, pairs_card) = out
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(T.leaves(pc),
+                                                       T.leaves(pg)))
+    assert tiles_cpu > 0 and pairs_cpu == 0
+    assert (tiles_card, pairs_card) == (0, 18)
 
 
 @pytest.mark.cuda
