@@ -110,6 +110,9 @@ class ModelConfig:
     norm_eps = 1e-6
     experts_held = 0  # routed experts held here; 0 -> all num_experts
     expert_offset = 0  # the first held expert's index
+    # the default of the field :class:`LatentMoEConfig` adds: the router's
+    # scores ("softmax", or DeepSeek-V3's "sigmoid" with a selection bias)
+    router_score = "softmax"
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -178,6 +181,10 @@ class ModelConfig:
                 n += self._ssm_params()
             elif kind == "ssm_moe":
                 n += self._ssm_params() + self._moe_params()
+            elif kind == "mla":
+                n += self._mla_params() + self._mlp_params(f)
+            elif kind == "mla_moe":
+                n += self._mla_params() + self._moe_params()
             elif kind == "rglru":
                 n += self._rglru_params() + self._mlp_params(f)
             n += 2 * d  # norms
@@ -195,13 +202,16 @@ class ModelConfig:
         d = self.d_model
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         for kind in self.layer_kinds:
-            if kind in ("moe", "ssm_moe"):
-                n += (self._attn_params() if kind == "moe"
-                      else self._ssm_params())
+            if kind in ("moe", "ssm_moe", "mla_moe"):
+                n += (self._attn_params() if kind == "moe" else
+                      self._ssm_params() if kind == "ssm_moe" else
+                      self._mla_params())
                 n += self.experts_per_token * self._mlp_params(self.moe_d_ff)
                 n += self.num_shared_experts * self._mlp_params(
                     self.shared_width)
                 n += d * self.num_experts
+            elif kind == "mla":
+                n += self._mla_params() + self._mlp_params(self.d_ff)
             else:
                 n += self._attn_params() + self._mlp_params(self.d_ff)
             n += 2 * d
@@ -269,11 +279,64 @@ class GraniteHybridConfig(ModelConfig):
         if self.block_pattern is not None:  # a JSON override gives a list
             object.__setattr__(self, "block_pattern",
                                tuple(self.block_pattern))
-        if self.expert_offset + self.held_experts > self.num_experts:
-            raise ValueError(
-                f"{self.name}: experts [{self.expert_offset}, "
-                f"{self.expert_offset + self.held_experts}) are not all "
-                f"among the router's {self.num_experts}")
+        _check_share(self)
+
+
+def _check_share(cfg) -> None:
+    if cfg.expert_offset + cfg.held_experts > cfg.num_experts:
+        raise ValueError(
+            f"{cfg.name}: experts [{cfg.expert_offset}, "
+            f"{cfg.expert_offset + cfg.held_experts}) are not all among the "
+            f"router's {cfg.num_experts}")
+
+
+@dataclass(frozen=True)
+class LatentMoEConfig(ModelConfig):
+    """A ``ModelConfig`` of DeepSeek-V3's stack (``model_type``
+    deepseek_v3): latent attention (MLA) in every layer, a dense SwiGLU in
+    the first ``first_k_dense`` layers and an MoE FFN in the rest (block
+    kinds ``mla`` and ``mla_moe``), the RMSNorm epsilon, a shared expert
+    of its own width, and the expert share of :class:`GraniteHybridConfig`.
+
+    MLA (``models/mla.py``): queries of ``qk_nope_head_dim +
+    qk_rope_head_dim`` per head; keys and values from a
+    ``kv_lora_rank``-wide latent, RMS-normed, plus one rope key of
+    ``qk_rope_head_dim`` shared by the heads; values of ``v_head_dim``.
+    ``router_score`` "sigmoid" is the DeepSeek-V3 router
+    (``models/moe.py``): the top-k of sigmoid scores plus a per-expert
+    selection bias, gates the unbiased scores of the chosen experts,
+    renormalised, times ``routed_scaling``, and the sequence-wise balance
+    loss times ``router_aux_weight``."""
+
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    router_score: str = "sigmoid"
+    routed_scaling: float = 1.0
+    shared_d_ff: int = 0
+    norm_eps: float = 1e-6
+    experts_held: int = 0
+    expert_offset: int = 0
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.router_score not in ("softmax", "sigmoid"):
+            raise ValueError(f"{self.name}: router_score "
+                             f"{self.router_score!r}")
+        _check_share(self)
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        return tuple("mla" if i < self.first_k_dense else "mla_moe"
+                     for i in range(self.num_layers))
+
+    def _mla_params(self) -> int:
+        d, h, r = self.d_model, self.num_heads, self.kv_lora_rank
+        dn, dr, dv = (self.qk_nope_head_dim, self.qk_rope_head_dim,
+                      self.v_head_dim)
+        return (d * h * (dn + dr) + d * (r + dr) + r
+                + r * h * (dn + dv) + h * dv * d)
 
 
 @dataclass(frozen=True)

@@ -11,7 +11,8 @@ decodes N tokens per request against the KV cache.  Runs on the GPU unless
       --reduced --batch 4 --prompt-len 32 --decode-tokens 16 [--device cpu]
 
 Every architecture of the reference's registry serves (a stack with the
-port's ``ssm_moe`` blocks is refused): the VLM's stub patch embeddings and
+port's ``ssm_moe``, ``mla`` or ``mla_moe`` blocks has no decode cache, and
+its model refuses to prefill): the VLM's stub patch embeddings and
 the audio model's stub frame embeddings are ``0.02 * normal`` draws from the
 prompt's own key, as the reference draws them, and a VLM's decode positions
 start after its image tokens.  ``--window N`` serves the sliding-window
@@ -162,10 +163,6 @@ def main(argv=None, *, session: Optional[dict] = None):
         cfg = cfg.decode_variant(args.window)
     if args.layers is not None:
         cfg = cut_depth(cfg, args.layers)
-    if "ssm_moe" in cfg.layer_kinds:
-        raise NotImplementedError(
-            f"{args.arch}: block kind 'ssm_moe' (a Mamba-2 mixer, then an "
-            f"MoE FFN) trains but has no prefill or decode path to serve")
     max_len = args.prompt_len + args.decode_tokens + cfg.num_image_tokens
     cfg = cfg.with_overrides(max_seq_len=max(cfg.max_seq_len, max_len))
     model = build_model(cfg, device=dev)

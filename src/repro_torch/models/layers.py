@@ -93,9 +93,11 @@ def rope_freqs(head_dim: int, theta: float, device=None):
                                    device=device) / half)
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (..., S, n_heads, head_dim); positions: broadcastable to (..., S)."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
+def apply_rope(x, positions, theta: float, freqs=None):
+    """x: (..., S, n_heads, head_dim); positions: broadcastable to (..., S);
+    ``freqs`` (head_dim / 2,) in place of ``rope_freqs(head_dim, theta)``."""
+    if freqs is None:
+        freqs = rope_freqs(x.shape[-1], theta, x.device)
     angles = positions[..., None].float() * freqs  # (..., S, hd/2)
     cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]
@@ -178,7 +180,6 @@ def attention(cfg, p, x, positions, *, causal: bool = True,
     memory.  cross: no RoPE on the queries and no causal mask.
     return_kv: also return the (k, v) computed here (prefill cache fill).
     """
-    B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x, positions,
                    cfg.pos_emb == "rope" and not cross)
     if kv_override is not None:
@@ -191,25 +192,36 @@ def attention(cfg, p, x, positions, *, causal: bool = True,
         # attention splits even where the heads do not divide the axis
         q = _over_model(q, 1)
 
+    out = attend(cfg, q, k, v, positions, k_positions,
+                 causal=causal and not cross, window=window)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def attend(cfg, q, k, v, positions, k_positions, *, causal: bool,
+           window: Optional[int] = None):
+    """The softmax core of training/prefill attention, chunked over
+    queries: q (B, S, H, hd) already scaled, k (B, S_k, KV, hd), v (B, S_k,
+    KV, hd_v) -> (B, S, H, hd_v).  Scores and softmax in f32, one ``chunk
+    x S_k`` score tensor at a time; ``causal`` masks keys after the query
+    (and, with ``window``, those ``window`` or more before it)."""
+    S = q.shape[1]
     chunk = cfg.attn_q_chunk or ATTN_QUERY_CHUNK
     outs = []
     for c0 in range(0, S, chunk):
         qpos = positions[c0:c0 + chunk]
         scores = _grouped_scores(q[:, c0:c0 + chunk], k).float()
-        if causal and not cross:
+        if causal:
             mask = qpos[:, None] >= k_positions[None, :]
             if window is not None:
                 mask &= (qpos[:, None] - k_positions[None, :]) < window
             scores.masked_fill_(~mask, _F32_MIN)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
         del scores
-        outs.append(_grouped_out(probs, v))  # (B, chunk, H, hd)
-    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    if return_kv:
-        return y, (k, v)
-    return y
+        outs.append(_grouped_out(probs, v))  # (B, chunk, H, hd_v)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def _over_model(t, dim: Optional[int]):

@@ -11,7 +11,14 @@
   decode_step(params, cache, tokens, pos) -> (logits, cache)
 
 for the decoder families (dense, moe, ssm, hybrid, vlm) and the
-encoder-decoder (audio).  A VLM batch may carry ``patch_embeds`` (B,
+encoder-decoder (audio); a stack with a block that trains but does not
+serve (``transformer.TRAIN_ONLY_KINDS``: Granite-4.0-H's ``ssm_moe``,
+DeepSeek-V3's latent attention, whose latent cache is not built) refuses
+``init_cache``, ``prefill`` and ``decode_step`` with
+``NotImplementedError``.  The Model's ``route_bias`` is the sigmoid
+router's selection bias (``moe.route_bias_shape``; zero unless given):
+state of the model that ``apply`` and ``loss_fn`` read and no round
+trains, clips or sums, since it is no parameter.  A VLM batch may carry ``patch_embeds`` (B,
 n_image, d), fused ahead of the text tokens (the logits are cut back to the
 text positions); an audio batch carries ``audio_embeds`` (B, encoder_seq,
 d).  ``decode_step`` updates the cache in place (and returns it); ``pos``
@@ -59,6 +66,7 @@ from repro_torch import device as _device
 from repro_torch.kernels import prf
 from repro_torch.models import encdec as E
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 
 
@@ -70,6 +78,7 @@ class Model(NamedTuple):
     init_cache: Callable
     prefill: Callable
     decode_step: Callable
+    route_bias: Any = None
 
 
 def param_shapes(cfg) -> Dict:
@@ -111,16 +120,22 @@ def _embed_inputs(cfg, params, batch, dtype):
     return x
 
 
-def build_model(cfg, *, use_ragged_moe: bool = False, device=None) -> Model:
+def build_model(cfg, *, use_ragged_moe: bool = False, device=None,
+                route_bias=None) -> Model:
     """The model of ``cfg`` on ``device`` (default the GPU): ``init`` and
     ``init_cache`` allocate there; the other functions run where their
-    inputs are.  ``use_ragged_moe`` selects the drop-free MoE dispatch."""
+    inputs are.  ``use_ragged_moe`` selects the drop-free MoE dispatch;
+    ``route_bias`` is the sigmoid router's selection bias (zero when
+    None)."""
     if use_ragged_moe and not cfg.moe_ragged:
         cfg = cfg.with_overrides(moe_ragged=True)
     dev = _device.resolve(device)
     if cfg.family == "audio":
         return _build_encdec(cfg, dev)
     dtype = getattr(torch, cfg.compute_dtype)
+    if cfg.router_score == "sigmoid" and route_bias is None:
+        route_bias = torch.zeros(M.route_bias_shape(cfg),
+                                 dtype=torch.float32, device=dev)
 
     def init(key):
         return init_from_key(cfg, key, dev)
@@ -129,7 +144,8 @@ def build_model(cfg, *, use_ragged_moe: bool = False, device=None) -> Model:
         x = _embed_inputs(cfg, params, batch, dtype)
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux = T.apply_stack(cfg, params["stack"], x, positions,
-                               use_ragged_moe=use_ragged_moe)
+                               use_ragged_moe=use_ragged_moe,
+                               route_bias=route_bias)
         x = L.apply_norm(cfg, params["final_norm"], x)
         if cfg.family == "vlm" and "patch_embeds" in batch:
             x = x[:, batch["patch_embeds"].shape[1]:]  # text positions
@@ -161,7 +177,15 @@ def build_model(cfg, *, use_ragged_moe: bool = False, device=None) -> Model:
         x = L.apply_norm(cfg, params["final_norm"], x)
         return L.unembed(cfg, emb, x), cache
 
-    return Model(cfg, init, apply, loss_fn, init_cache, prefill, decode_step)
+    no_serve = sorted(set(cfg.layer_kinds) & set(T.TRAIN_ONLY_KINDS))
+    if no_serve:
+        def init_cache(*a, **k):
+            raise NotImplementedError(
+                f"{cfg.name}: block kind(s) {no_serve} train but have no "
+                f"decode cache to serve from")
+        prefill = decode_step = init_cache
+    return Model(cfg, init, apply, loss_fn, init_cache, prefill, decode_step,
+                 route_bias)
 
 
 def _build_encdec(cfg, dev) -> Model:

@@ -29,6 +29,16 @@ are a contiguous run, and only they are gathered, run and combined
 (drop-free); the others add nothing here.  While the default registry
 records spans, the share counts ``moe_pairs{held=0|1}`` and the largest
 held expert's load ``moe_held_load_max`` from the counts it reads back.
+
+``cfg.router_score`` "sigmoid" is DeepSeek-V3's router (``topk_method``
+noaux_tc with one group): scores ``s = sigmoid(u W_r)``, the experts
+chosen by the top-k of ``s + b`` with ``b`` the per-expert selection bias
+(``e_score_correction_bias``, state of the model and not a weight: it is
+an argument here, never a parameter), gates the unbiased ``s`` of the
+chosen experts, renormalised, times ``cfg.routed_scaling``.  Its loss is
+the DeepSeek-V3 report's sequence-wise balance loss.  While spans record
+it counts ``moe_bias_moved``: the (token, slot) pairs whose expert is not
+among the token's unbiased top-k.
 """
 from __future__ import annotations
 
@@ -87,13 +97,59 @@ def _bincount(flat: torch.Tensor, E: int) -> torch.Tensor:
     return flat.new_zeros((E,)).index_add_(0, flat, torch.ones_like(flat))
 
 
-def route(cfg, p, x_flat) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+MOE_KINDS = ("moe", "ssm_moe", "mla_moe")
+
+
+def route_bias_shape(cfg) -> Tuple[int, int]:
+    """(MoE layers, experts): one selection bias row per MoE layer of the
+    stack, in stack order."""
+    return (sum(k in MOE_KINDS for k in cfg.layer_kinds), cfg.num_experts)
+
+
+def _top_k(scores, k: int) -> torch.Tensor:
+    """The top-k's indices by a stable descending sort: ties go to the
+    lower expert index, as ``jax.lax.top_k`` breaks them."""
+    return torch.sort(scores, dim=-1, descending=True, stable=True)[1][:, :k]
+
+
+def _route_sigmoid(cfg, logits, n_seq: int, bias):
+    """DeepSeek-V3's router on f32 logits (T, E): (gates, idx, the
+    sequence-wise balance loss ``mean over sequences of sum_e f_e P_e``,
+    ``f_e = E / (k T_s)`` times the sequence's tokens whose unbiased top-k
+    holds ``e``, ``P_e`` the mean over the sequence of ``s_e / sum s``)."""
+    k = cfg.experts_per_token
+    n_tok, E = logits.shape
+    scores = torch.sigmoid(logits)
+    plain = _top_k(scores, k)
+    idx = plain if bias is None else _top_k(scores + bias, k)
+    gates = scores.gather(1, idx)
+    gates = gates / (gates.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scaling
+    tel = tele.get_default()
+    if (bias is not None and tel.record_spans
+            and torch._C._current_graph_task_id() == -1):
+        moved = ~(idx[:, :, None] == plain[:, None, :]).any(-1)
+        tel.count("moe_bias_moved", int(moved.sum()))
+    T_s = n_tok // n_seq
+    chosen = torch.zeros_like(scores).scatter_(1, plain, 1.0)
+    f = chosen.view(n_seq, T_s, E).sum(1) * (E / (k * T_s))
+    P = (scores / scores.sum(-1, keepdim=True)).view(n_seq, T_s, E).mean(1)
+    aux = (f * P).sum(-1).mean()
+    return gates, idx, aux
+
+
+def route(cfg, p, x_flat, n_seq: int = 1,
+          bias=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (gates (T,k), expert_idx (T,k) int64, aux_loss scalar).
 
+    ``x_flat`` holds ``n_seq`` sequences of equal length, token-major;
+    ``bias`` (E,) is the sigmoid router's selection bias (None: zero).
     The top-k is a stable descending sort, so ties go to the lower expert
     index as ``jax.lax.top_k`` breaks them."""
     k = cfg.experts_per_token
     logits = (x_flat @ p["router"].to(x_flat.dtype)).float()  # (T, E)
+    if cfg.router_score == "sigmoid":
+        gates, idx, aux = _route_sigmoid(cfg, logits, n_seq, bias)
+        return gates.to(x_flat.dtype), idx, aux
     probs = torch.softmax(logits, dim=-1)
     vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = vals[:, :k], order[:, :k]
@@ -182,8 +238,9 @@ def _dispatch_held(cfg, p, x_flat, gates, idx):
     return x_flat.new_zeros((n_tok, d)).index_add(0, pairs // k, y_pairs)
 
 
-def apply_moe(cfg, p, x, *, use_ragged: bool = None):
-    """x: (B, S, d) -> (y, aux_loss)."""
+def apply_moe(cfg, p, x, *, use_ragged: bool = None, bias=None):
+    """x: (B, S, d) -> (y, aux_loss); ``bias`` the sigmoid router's
+    selection bias (E,)."""
     if use_ragged is None:
         use_ragged = cfg.moe_ragged
     ragged = use_ragged or cfg.moe_dispatch == "ragged"
@@ -192,7 +249,7 @@ def apply_moe(cfg, p, x, *, use_ragged: bool = None):
     B, S, d = x.shape
     n_tok = B * S
     x_flat = x.reshape(n_tok, d)
-    gates, idx, aux = route(cfg, p, x_flat)
+    gates, idx, aux = route(cfg, p, x_flat, B, bias)
     if cfg.experts_held:
         if not ragged:
             raise ValueError("an expert share dispatches drop-free: set "

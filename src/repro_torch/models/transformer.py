@@ -2,12 +2,16 @@
 
 Port of ``repro.models.transformer`` for every block kind: ``attn``,
 ``local_attn``, ``moe``, ``ssm`` and ``rglru``; and the port's own
-``ssm_moe`` (Granite-4.0-H: a Mamba-2 mixer, then an MoE FFN), which
-trains but does not serve.  Each block's branches are scaled by
-``cfg.residual_multiplier`` where it is not 1.  While the default registry
-records spans, each Mamba-2 mixer's and each MoE FFN's forward pass is a
-fenced ``ssm`` / ``moe`` span labelled with its ``layer`` (not the
-recomputation of a checkpointed block in the backward pass).
+``ssm_moe`` (Granite-4.0-H: a Mamba-2 mixer, then an MoE FFN), ``mla``
+and ``mla_moe`` (DeepSeek-V3: latent attention, then a dense SwiGLU or an
+MoE FFN), which train but do not serve.  Each block's branches are scaled
+by ``cfg.residual_multiplier`` where it is not 1.  While the default
+registry records spans, each Mamba-2 mixer's, each latent attention's and
+each MoE FFN's forward pass is a fenced ``ssm`` / ``mla`` / ``moe`` span
+labelled with its ``layer`` (not the recomputation of a checkpointed
+block in the backward pass).  The sigmoid router's selection bias
+(``route_bias``, one row a MoE layer) is an argument of the stack, not a
+parameter.
 
 The stack layout is the reference's: a homogeneous stack deeper than one
 layer (``_is_scannable``) keeps its layers' parameters and caches stacked
@@ -28,11 +32,14 @@ from repro_torch import tree as T
 from repro_torch.core import telemetry as tele
 from repro_torch.kernels import prf
 from repro_torch.models import layers as L
+from repro_torch.models import mla as A
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 
 _ATTN_KINDS = ("attn", "local_attn", "moe")
+# block kinds that train but have no prefill or decode path
+TRAIN_ONLY_KINDS = ("ssm_moe", "mla", "mla_moe")
 
 
 def _window(cfg, kind: str):
@@ -70,6 +77,12 @@ def block_shapes(cfg, kind: str, lead=()) -> Dict:
                 "rec": R.rglru_shapes(cfg, lead),
                 "norm2": L.norm_shapes(cfg, d, lead),
                 "mlp": L.mlp_shapes(cfg, cfg.d_ff, lead)}
+    if kind in ("mla", "mla_moe"):
+        ffn = ({"mlp": L.mlp_shapes(cfg, cfg.d_ff, lead)} if kind == "mla"
+               else {"moe": M.moe_shapes(cfg, lead)})
+        return {"norm1": L.norm_shapes(cfg, d, lead),
+                "attn": A.mla_shapes(cfg, lead),
+                "norm2": L.norm_shapes(cfg, d, lead), **ffn}
     raise ValueError(kind)
 
 
@@ -102,6 +115,12 @@ def init_block(key, cfg, kind: str, device=None):
                 "rec": R.init_rglru_block(k1, cfg, device),
                 "norm2": L.init_norm(cfg, d, device),
                 "mlp": L.init_mlp(k2, cfg, cfg.d_ff, device)}
+    if kind in ("mla", "mla_moe"):
+        ffn = ({"mlp": L.init_mlp(k2, cfg, cfg.d_ff, device)}
+               if kind == "mla" else {"moe": M.init_moe(k2, cfg, device)})
+        return {"norm1": L.init_norm(cfg, d, device),
+                "attn": A.init_mla(k1, cfg, device),
+                "norm2": L.init_norm(cfg, d, device), **ffn}
     raise ValueError(kind)
 
 
@@ -120,12 +139,20 @@ def _forward_span(name: str, layer):
     return tel.span(name, layer=layer)
 
 
-def _moe(cfg, p, x, use_ragged, layer):
+def _moe(cfg, p, x, use_ragged, layer, bias=None):
     with _forward_span("moe", layer) as sp:
         y, aux = M.apply_moe(cfg, p["moe"], L.apply_norm(cfg, p["norm2"], x),
-                             use_ragged=use_ragged)
+                             use_ragged=use_ragged, bias=bias)
         sp.fence(y)
     return _add(cfg, x, y), aux
+
+
+def _mla(cfg, p, x, positions, layer):
+    with _forward_span("mla", layer) as sp:
+        y = A.apply_mla(cfg, p["attn"], L.apply_norm(cfg, p["norm1"], x),
+                        positions)
+        sp.fence(y)
+    return _add(cfg, x, y)
 
 
 def _mamba(cfg, p, x, layer):
@@ -136,8 +163,9 @@ def _mamba(cfg, p, x, layer):
 
 
 def apply_block(cfg, p, x, positions, kind: str, *, use_ragged_moe=None,
-                layer=None):
-    """(B,S,d) -> ((B,S,d), aux_loss); ``layer`` labels the spans."""
+                layer=None, route_bias=None):
+    """(B,S,d) -> ((B,S,d), aux_loss); ``layer`` labels the spans;
+    ``route_bias`` (E,) is an MoE block's selection bias."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in _ATTN_KINDS:
         h = L.attention(cfg, p["attn"], L.apply_norm(cfg, p["norm1"], x),
@@ -158,6 +186,13 @@ def apply_block(cfg, p, x, positions, kind: str, *, use_ragged_moe=None,
             cfg, p["rec"], L.apply_norm(cfg, p["norm1"], x)))
         x = _add(cfg, x, L.apply_mlp(cfg, p["mlp"],
                                      L.apply_norm(cfg, p["norm2"], x)))
+    elif kind == "mla":
+        x = _mla(cfg, p, x, positions, layer)
+        x = _add(cfg, x, L.apply_mlp(cfg, p["mlp"],
+                                     L.apply_norm(cfg, p["norm2"], x)))
+    elif kind == "mla_moe":
+        x, aux = _moe(cfg, p, _mla(cfg, p, x, positions, layer),
+                      use_ragged_moe, layer, route_bias)
     else:
         raise ValueError(kind)
     return x, aux
@@ -319,17 +354,26 @@ def init_stack(key, cfg, device=None) -> Dict:
     return p
 
 
-def apply_stack(cfg, p, x, positions, *, use_ragged_moe: bool = False):
+def apply_stack(cfg, p, x, positions, *, use_ragged_moe: bool = False,
+                route_bias=None):
     """The blocks in order.  With ``cfg.remat`` each block of a scanned
     tail (every block of an unscanned stack) is checkpointed, as the
     reference ``jax.checkpoint``s its scan body: its activations are
-    recomputed in the backward pass instead of kept."""
+    recomputed in the backward pass instead of kept.  ``route_bias``
+    (``moe.route_bias_shape``): row ``j`` is the ``j``-th MoE block's
+    selection bias."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     head = cfg.first_k_dense if _is_scannable(cfg) else 0
+    j = 0  # MoE blocks so far
     for i, (kind, lp) in enumerate(_layers(cfg, p, unbind=True)):
-        def block(h, lp=lp, kind=kind, i=i):
+        bias = None
+        if route_bias is not None and kind in M.MOE_KINDS:
+            bias, j = route_bias[j], j + 1
+
+        def block(h, lp=lp, kind=kind, i=i, bias=bias):
             return apply_block(cfg, lp, h, positions, kind,
-                               use_ragged_moe=use_ragged_moe, layer=i)
+                               use_ragged_moe=use_ragged_moe, layer=i,
+                               route_bias=bias)
         if cfg.remat and i >= head:
             # the blocks draw no random numbers: no RNG state to replay
             x, aux = checkpoint(block, x, use_reentrant=False,
