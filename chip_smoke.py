@@ -108,8 +108,9 @@ Phases (each prints its seconds):
      ``repro_torch.launch.dist.run`` on an NCCL world of one rank per card
      (``torch.cuda.device_count()``) and on gloo worlds of 2 and 4 ranks
      sharing cuda:0, every run in every world: each rank holds and encodes only its
-     block of leaves and the ranks' int32 partials meet in an int64
-     ``all_reduce`` taken mod 2^32 (gloo stages it through the host);
+     block of leaves and the ranks' int32 partials meet in ``combine``
+     (an int32 exchange, D2's sum of each rank's shard, a gather; gloo
+     stages them through the host);
      every rank's final params must be phase 2f's (SHA-256 of the bytes);
      each rank's push, flush (leaf partials / combine), combine bytes and
      peak memory;
@@ -1515,18 +1516,21 @@ def _dist_want(case, world: int) -> dict:
     """The launches a case must show summed over the ranks: every landed
     row is encoded once, on its leaf's rank; every rank decodes.  D2
     (row_sum) sums a rank's rows once a chunk of each flush, flat, or each
-    leaf's apart, in the tree."""
+    leaf's apart, in the tree; in a world of more than one rank, each
+    rank's ``combine`` adds its shard's rows once a partial (a chunk of a
+    flush, a leaf of a round)."""
     from repro_torch.kernels import secure_agg as ksa
     C, pushes = EXPECT_CHUNKS, BUFFER + 6
+    comb = world if world > 1 else 0  # D2 launches a combined partial
     if case.name == "tier-tee":
-        return {ksa.PRF_LANE: 2 * TIER_LEAVES * C}
+        return {ksa.PRF_LANE: 2 * TIER_LEAVES * C, "row_sum": 2 * C * comb}
     if case.name == "tier-leafdeath":
         return dict(dict.fromkeys(("quantize_mask_prf", "pack_residues",
                                    "unpack_residues"), 6 * C),
-                    row_sum=TIER_LEAVES * C)
+                    row_sum=(TIER_LEAVES + comb) * C)
     if case.name == "tier-sketch":
         return {"rotate_quantize_prf": pushes * C,
-                "row_sum": 2 * TIER_LEAVES * C}
+                "row_sum": 2 * (TIER_LEAVES + comb) * C}
     if case.name.startswith("tier-round"):
         # jax_random: every rank draws the inputs (the init's draws and the
         # features' normal); a uniform before every K6 encode
@@ -1535,9 +1539,11 @@ def _dist_want(case, world: int) -> dict:
                 "quantize_mask": CLASSIFIER_COHORT * Lc,
                 "dequantize": world * Lc,
                 "jax_random": world * (mlp_init_draws() + 1)
-                + CLASSIFIER_COHORT * Lc}
+                + CLASSIFIER_COHORT * Lc,
+                "row_sum": comb * Lc}
     return {"quantize_mask_prf": pushes * C,
-            "row_sum": 2 * C * (TIER_LEAVES if case.two_level else world)}
+            "row_sum": 2 * C * ((TIER_LEAVES if case.two_level else world)
+                                + comb)}
 
 
 def dist_tier_path(torch, seed: int, digests: dict, counts: dict,
@@ -1545,8 +1551,8 @@ def dist_tier_path(torch, seed: int, digests: dict, counts: dict,
     """Phase 2i: phase 2f's runs on ``torch.distributed`` worlds on the
     card, every run in every world: gloo worlds of 2 and 4 ranks sharing
     cuda:0 (NCCL refuses two ranks on one device; gloo's combine stages the
-    partials through the host, at ~0.5-1 GB/s a rank,
-    ``tools/gloo_combine.py``) and an NCCL world of one rank per card.
+    partials through the host, ``tools/gloo_combine.py``) and an NCCL world
+    of one rank per card.
     Every rank of every run
     must end with phase 2f's params (SHA-256 of the bytes, the digests 2f
     took); the ranks' launches, summed, must be exact.  Returns the
@@ -1779,8 +1785,8 @@ class RouteLog:
         from repro_torch.models import moe
         self.moe, self.route, self.calls = moe, moe.route, []
 
-        def route(cfg, p, x):
-            out = self.route(cfg, p, x)
+        def route(cfg, p, x, *args, **kwargs):
+            out = self.route(cfg, p, x, *args, **kwargs)
             probs = self.torch.softmax((x @ p["router"]).float(), dim=-1)
             top = probs.topk(cfg.experts_per_token + 1, dim=-1).values
             self.calls.append((self.torch.sort(out[1], dim=-1).values,

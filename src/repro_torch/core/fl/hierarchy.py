@@ -30,9 +30,10 @@ Where the leaves live (``mesh``, see ``launch.mesh``):
 - a ``torch.distributed`` group (SPMD, as ``shard_map``): every rank runs
   the same calls on the same inputs and keeps the same host metadata, but
   holds, encodes, sums and sweeps only its contiguous block of leaves on
-  its own device; :func:`combine` is the field-modulus ``psum`` (an int64
-  ``all_reduce`` of the partials' uint32 words, then mod 2^32), and every
-  rank decodes to the same params (the reference's ``out_specs=P()``).
+  its own device; :func:`combine` is the field-modulus ``psum`` (an
+  exchange of the partials' int32 words, a mod 2^32 sum of each rank's
+  shard, a gather), and every rank decodes to the same params (the
+  reference's ``out_specs=P()``).
 
 In both, arrival batches are routed by destination leaf on the host
 (``_route_by_leaf``) and a leaf encodes only its own rows, with PRF
@@ -181,31 +182,56 @@ def _world(mesh) -> Tuple[int, int]:
 
 def combine(accs: Sequence[torch.Tensor], mesh, telemetry=None,
             **labels) -> List[torch.Tensor]:
-    """The root combine of int32 leaf partials across the mesh's ranks, in
-    place: each partial's words (int32 bits as uint32 values in int64)
-    summed by an int64 ``all_reduce`` (at most ``ranks * 2^32``, exact),
-    then taken mod 2^32 back to int32, in tiles.  No collective sums
-    signed int32 (its overflow is not defined).  A no-op without a process
-    group.  The fenced span ``combine`` carries the bytes each rank sends
-    (8 per element)."""
+    """The root combine of int32 leaf partials across the mesh's ``W``
+    ranks, in place, two collectives a partial.  A partial of ``n`` words
+    is cut into ``W`` shards of ``per = ceil(n / W)`` words (zero-padded
+    where ``W`` does not divide ``n``); one ``all_to_all_single`` of the
+    raw int32 words hands rank ``r`` every rank's shard ``r`` as a ``(W,
+    per)`` buffer; D2 (``sum_rows``) adds those rows in uint32 registers;
+    one ``all_gather_into_tensor`` hands every rank every summed shard.
+    The collectives only move bytes, so no collective sums signed int32
+    (its overflow is not defined) and no int64 copy of a partial is made;
+    addition mod 2^32 is exact in any order, so every rank holds the
+    words a one-process sum gives.  A no-op without a process group or in
+    a world of one.  The fenced span ``combine`` carries the bytes a rank
+    sends (``2 (W - 1) per`` words a partial) and the collectives it
+    makes (``calls``); the counters ``combine_bytes`` and
+    ``combine_calls`` add the same."""
     accs = list(accs)
-    if mesh is None or mesh.group is None:
-        return accs
-    import torch.distributed as tdist
     _, W = _world(mesh)
+    if W == 1:
+        return accs
     tel = telemetry if telemetry is not None else tele.get_default()
-    nbytes = 8 * sum(int(a.numel()) for a in accs)
-    with tel.span("combine", ranks=W, bytes=nbytes, **labels) as sp:
-        for a in accs:
-            flat = a.view(-1)
-            for s in range(0, flat.numel(), prf.TILE):
-                t = slice(s, s + prf.TILE)
-                w = prf.words_of(flat[t])
-                tdist.all_reduce(w, group=mesh.group)
-                flat[t] = prf.to_int32(w)
+    pers = [-(-a.numel() // W) for a in accs]
+    nbytes = sum(8 * (W - 1) * per for per in pers)
+    calls = sum(2 for per in pers if per)
+    with tel.span("combine", ranks=W, bytes=nbytes, calls=calls,
+                  **labels) as sp:
+        for a, per in zip(accs, pers):
+            if per:
+                _exchange_sum(a.view(-1), per, W, mesh.group)
         sp.fence(accs)
     tel.count("combine_bytes", nbytes, **labels)
+    tel.count("combine_calls", calls, **labels)
     return accs
+
+
+def _exchange_sum(flat: torch.Tensor, per: int, W: int, group) -> None:
+    """:func:`combine` of one contiguous partial ``flat``, in place."""
+    import torch.distributed as tdist
+    n = flat.numel()
+    send = flat
+    if n != W * per:
+        send = flat.new_zeros(W * per)
+        send[:n] = flat
+    recv = torch.empty_like(send)
+    tdist.all_to_all_single(recv, send, group=group)
+    part = agg.sum_rows(recv.view(W, per))
+    del recv
+    # the padded send buffer is free again: it takes the gathered shards
+    tdist.all_gather_into_tensor(send, part, group=group)
+    if send is not flat:
+        flat.copy_(send[:n])
 
 
 def gather_slots(mesh, *per_slot: torch.Tensor) -> Tuple[torch.Tensor, ...]:

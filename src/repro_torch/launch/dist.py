@@ -17,10 +17,9 @@ is gone.  So no rank waits on a collective that can never complete.
 
 The backend is ``nccl`` when every rank has a GPU of its own and ``gloo``
 otherwise (the CPU, or several ranks sharing one GPU: NCCL refuses two
-ranks on one device).  Gloo's ``all_reduce`` takes CUDA tensors itself
-(it stages them through the host, twice as fast on an H100 host as a
-copy made here, ``tools/gloo_combine.py``); for its ``all_gather`` a CUDA
-tensor is copied to the host here.
+ranks on one device).  The tier's combine hands gloo CUDA tensors
+itself (gloo stages them through the host; ``tools/gloo_combine.py`` times
+it); for :func:`all_gather_cat` a CUDA tensor is copied to the host here.
 """
 from __future__ import annotations
 

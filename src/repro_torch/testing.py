@@ -287,13 +287,14 @@ def _stack(trees):
 
 
 class CombineCase(NamedTuple):
-    """``hierarchy.combine`` of one int32 partial per rank: rank r's is
-    ``RandomState(seed + r)``'s ``n`` values drawn from the int32 range's
-    ends, so the sum overflows int32 (the reference: numpy mod 2^32)."""
+    """``hierarchy.combine`` of int32 partials of ``sizes`` words, one list
+    per rank: rank r's are ``combine_partial(seed, r, sum(sizes))`` cut in
+    order, values from the int32 range's ends, so the sum overflows int32
+    (the reference: numpy mod 2^32)."""
 
     name: str
     seed: int
-    n: int = 4096
+    sizes: tuple = (4096,)
 
 
 class MeshCase(NamedTuple):
@@ -379,8 +380,8 @@ def tier_world(rank: int, world_size: int, sources: Sequence[Callable],
     ``combine``, ``decode``, ``round.*``), the bytes its combines sent, its
     peak device memory (GiB; NaN on the CPU), and the seconds of the run,
     of building its source and of the digest.  A :class:`CombineCase`
-    returns the combined partial, a :class:`MeshCase` the mesh's shape and
-    ``DeviceMesh`` axes.
+    returns the combined partials, the counters and the ``combine`` span's
+    labels, a :class:`MeshCase` the mesh's shape and ``DeviceMesh`` axes.
     """
     import torch.distributed as tdist
 
@@ -416,9 +417,15 @@ def tier_world(rank: int, world_size: int, sources: Sequence[Callable],
         t0 = time.perf_counter()
         if isinstance(case, CombineCase):
             from repro_torch.core.fl import hierarchy
-            part = torch.from_numpy(combine_partial(case.seed, rank, case.n))
-            out[case.name] = {"combined": hierarchy.combine(
-                [part.to(dev)], mesh, tel)[0].cpu(), "rank": rank}
+            flat = torch.from_numpy(combine_partial(case.seed, rank,
+                                                    sum(case.sizes)))
+            parts = [p.to(dev) for p in flat.split(list(case.sizes))]
+            combined = hierarchy.combine(parts, mesh, tel)
+            out[case.name] = {
+                "combined": [p.cpu() for p in combined], "rank": rank,
+                "counters": {n: v for (n, _), v in tel.counters().items()},
+                "span_labels": [sp.labels for sp in tel.spans
+                                if sp.name == "combine"]}
             continue
         if isinstance(case, TierCase):
             srv = run_tier_case(case, built[case.source], mesh=mesh,

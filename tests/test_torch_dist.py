@@ -17,7 +17,9 @@ one-process tier on the same inputs and compares:
 - the bits-16 packed wire and sketch@0.2 (``client``), the same way;
 - ``build_sharded_round_step`` across ranks: masked == unmasked and equal
   to the one-process round;
-- ``combine`` of int32 partials whose sum overflows int32, and
+- ``combine`` of int32 partials whose sum overflows int32 (sizes that W
+  divides or not, shorter than W, a list of them), the two collectives a
+  partial it counts and the bytes a rank sends, and
   ``_partition_edges`` for any number of shards;
 - a twin of ``tests/test_hierarchy.py``'s multidev cases (the reference
   forces 8 host devices; here gloo ranks), which the reference runs in
@@ -129,6 +131,13 @@ for _deg in (0, 4):
         f"round-masked-{_deg}", dict(ROUND_FL, secure_agg_masked=True,
                                      secure_agg_degree=_deg), 8, 4)
 COMBINES = {f"combine-{s}": CombineCase(f"combine-{s}", s) for s in (1, 2)}
+# partials that W does not divide, one shorter than W (the seed makes its
+# sum overflow in both worlds), and a list of unequal ones with an empty one
+for _case in (CombineCase("combine-ragged", 3, (4099,)),
+              CombineCase("combine-tiny", 7, (1,)),
+              CombineCase("combine-chunks", 4,
+                          (5000, 0, 4099, 3, 1, 2, 1031))):
+    COMBINES[_case.name] = _case
 # a ("data", "model") mesh of 2 x 2: a DeviceMesh in the world of 4 only
 MESHES = [MeshCase("mesh-2x2", (2, 2), ("data", "model"))]
 TIER_CASES = _tier_cases()
@@ -228,8 +237,10 @@ def test_each_rank_holds_only_its_leaves(worlds, world):
     k1 = sum(res["client-tree"]["counts"]["quantize_mask_prf"]["plain_calls"]
              for res in worlds[world])
     assert k1 == 8 + 5  # every landed row encoded once, on its rank
-    assert all(res["client-tree"]["combine_bytes"] == 2 * 8 * D
-               for res in worlds[world])  # two flushes, int64 words
+    # two flushes, each D int32 words: (W - 1) / W of them out, and back
+    assert all(res["client-tree"]["combine_bytes"]
+               == 2 * 2 * 4 * (world - 1) * D // world
+               for res in worlds[world])
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -316,15 +327,37 @@ def test_sharded_round_across_ranks(worlds, world):
 @pytest.mark.parametrize("name", sorted(COMBINES))
 def test_combine_wraps_mod_2_32_across_ranks(worlds, world, name):
     """Partials from the ends of the int32 range: their sum overflows int32
-    many times over; every rank gets numpy's sum mod 2^32."""
+    many times over; every rank gets numpy's sum mod 2^32, partial by
+    partial, whether or not W divides a partial's size."""
     case = COMBINES[name]
-    want = sum(combine_partial(case.seed, r, case.n).astype(np.int64)
+    want = sum(combine_partial(case.seed, r, sum(case.sizes)).astype(np.int64)
                for r in range(world))
     assert np.abs(want).max() > 2 ** 31  # the int32 sum overflows
-    want = ((want & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+    want = (((want & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).astype(np.int32)
+    want = np.split(want, np.cumsum(case.sizes)[:-1])
     for r in worlds[world]:
-        np.testing.assert_array_equal(r[name]["combined"].numpy(),
-                                      want.astype(np.int32))
+        got = r[name]["combined"]
+        assert [g.numel() for g in got] == list(case.sizes)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", sorted(COMBINES))
+def test_combine_makes_two_collectives_a_partial(worlds, world, name):
+    """An exchange and a gather a non-empty partial, none for an empty one;
+    a rank sends ``2 (W - 1) / W`` of a partial padded to ``W`` equal
+    shards, 4 bytes a word: in ``combine_calls``, ``combine_bytes`` and
+    the ``combine`` span's labels."""
+    case = COMBINES[name]
+    padded = [world * -(-n // world) for n in case.sizes]
+    calls = 2 * sum(1 for n in case.sizes if n)
+    nbytes = sum(2 * (world - 1) * 4 * n // world for n in padded)
+    for r in worlds[world]:
+        assert r[name]["counters"] == {"combine_calls": calls,
+                                       "combine_bytes": nbytes}
+        assert r[name]["span_labels"] == [{"ranks": world, "bytes": nbytes,
+                                           "calls": calls}]
 
 
 @pytest.mark.parametrize("shards", [1, 2, 3, 4, 8])
