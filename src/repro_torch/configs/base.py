@@ -185,6 +185,10 @@ class ModelConfig:
                 n += self._mla_params() + self._mlp_params(f)
             elif kind == "mla_moe":
                 n += self._mla_params() + self._moe_params()
+            elif kind == "kda":
+                n += self._kda_params() + self._mlp_params(f)
+            elif kind == "kda_moe":
+                n += self._kda_params() + self._moe_params()
             elif kind == "rglru":
                 n += self._rglru_params() + self._mlp_params(f)
             n += 2 * d  # norms
@@ -202,9 +206,10 @@ class ModelConfig:
         d = self.d_model
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         for kind in self.layer_kinds:
-            if kind in ("moe", "ssm_moe", "mla_moe"):
+            if kind in ("moe", "ssm_moe", "mla_moe", "kda_moe"):
                 n += (self._attn_params() if kind == "moe" else
                       self._ssm_params() if kind == "ssm_moe" else
+                      self._kda_params() if kind == "kda_moe" else
                       self._mla_params())
                 n += self.experts_per_token * self._mlp_params(self.moe_d_ff)
                 n += self.num_shared_experts * self._mlp_params(
@@ -212,6 +217,8 @@ class ModelConfig:
                 n += d * self.num_experts
             elif kind == "mla":
                 n += self._mla_params() + self._mlp_params(self.d_ff)
+            elif kind == "kda":
+                n += self._kda_params() + self._mlp_params(self.d_ff)
             else:
                 n += self._attn_params() + self._mlp_params(self.d_ff)
             n += 2 * d
@@ -318,6 +325,9 @@ class LatentMoEConfig(ModelConfig):
     norm_eps: float = 1e-6
     experts_held: int = 0
     expert_offset: int = 0
+    # RoPE on the rope dims (False), or those dims kept and not rotated
+    # (True: Kimi Linear's MLA)
+    mla_use_nope: bool = False
 
     def __post_init__(self):
         super().__post_init__()
@@ -337,6 +347,57 @@ class LatentMoEConfig(ModelConfig):
                       self.v_head_dim)
         return (d * h * (dn + dr) + d * (r + dr) + r
                 + r * h * (dn + dv) + h * dv * d)
+
+
+@dataclass(frozen=True)
+class KimiLinearConfig(LatentMoEConfig):
+    """A :class:`LatentMoEConfig` of Kimi Linear's stack (``model_type``
+    kimi_linear): Kimi Delta Attention (KDA, ``models/kda.py``) in the
+    1-based layers ``kda_layers`` and MLA in ``full_attn_layers``, as
+    ``linear_attn_config`` lists them; a dense SwiGLU in the first
+    ``first_k_dense`` layers and an MoE FFN in the rest (block kinds
+    ``kda``, ``kda_moe``, ``mla``, ``mla_moe``).
+
+    KDA: ``kda_num_heads`` heads of ``kda_head_dim`` keys and values,
+    short convolutions of ``kda_conv_width``, the decay's and the output
+    gate's low-rank projections ``kda_head_dim`` wide, computed in chunks
+    of ``kda_chunk`` tokens.  ``mla_use_nope`` is true here: the MLA layers
+    keep their rope dims in the queries and the shared key without rotating
+    them."""
+
+    kda_layers: Tuple[int, ...] = ()
+    full_attn_layers: Tuple[int, ...] = ()
+    kda_num_heads: int = 0
+    kda_head_dim: int = 0
+    kda_conv_width: int = 4
+    kda_chunk: int = 64
+    mla_use_nope: bool = True
+
+    def __post_init__(self):
+        super().__post_init__()
+        for f in ("kda_layers", "full_attn_layers"):  # JSON gives lists
+            object.__setattr__(self, f, tuple(getattr(self, f)))
+        if sorted(self.kda_layers + self.full_attn_layers) != \
+                list(range(1, self.num_layers + 1)):
+            raise ValueError(f"{self.name}: kda_layers and full_attn_layers "
+                             f"do not partition layers 1..{self.num_layers}")
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        kda = set(self.kda_layers)
+        return tuple(("kda" if i + 1 in kda else "mla")
+                     + ("" if i < self.first_k_dense else "_moe")
+                     for i in range(self.num_layers))
+
+    def _kda_params(self) -> int:
+        d, r = self.d_model, self.kda_head_dim
+        hk = self.kda_num_heads * r
+        return (4 * d * hk                      # q, k, v, out
+                + 3 * self.kda_conv_width * hk  # the short convolutions
+                + 2 * (d * r + r * hk) + hk     # decay and gate, gate bias
+                + d * self.kda_num_heads        # beta
+                + self.kda_num_heads + hk       # A_log, dt_bias
+                + self.kda_head_dim)            # the output norm
 
 
 @dataclass(frozen=True)

@@ -37,6 +37,7 @@ ARCH_IDS = tuple(_ARCH_MODULES)
 _PORT_ONLY_MODULES: Dict[str, str] = {
     "granite-4.0-h-small": "repro_torch.configs.granite_4_0_h_small",
     "moonlight-16b-a3b": "repro_torch.configs.moonlight_16b_a3b",
+    "kimi-linear-48b-a3b": "repro_torch.configs.kimi_linear_48b_a3b",
 }
 
 # Sliding window of the long_500k decode variant of full-attention archs.

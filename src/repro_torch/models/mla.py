@@ -10,7 +10,9 @@ qk_rope_head_dim``, ``dv = v_head_dim`` and ``r = kv_lora_rank``:
   shared by every head;
 - ``[k_nope, v] = RMSNorm(c) W_kv_b`` (r, H, dn + dv);
 - RoPE on ``q_rope`` and ``k_rope`` only, paired as DeepSeek-V3's modeling
-  pairs them (:func:`rope_pairs`);
+  pairs them (:func:`rope_pairs`); with ``cfg.mla_use_nope`` (Kimi Linear)
+  no position encoding: the rope dims stay in the queries and the shared
+  key, not rotated;
 - queries ``[q_nope, q_rope]`` and keys ``[k_nope, k_rope]`` of width
   ``dn + dr`` against values of width ``dv``, causal, softmax scale
   ``(dn + dr) ** -0.5``, through the chunked f32 core of the GQA layer
@@ -79,9 +81,11 @@ def apply_mla(cfg, p, x, positions):
     kv = torch.einsum("bsr,rhk->bshk", L.apply_norm(cfg, p["kv_norm"], c),
                       p["wkv_b"].to(dt))
     k_nope, v = kv.split([dn, dv], dim=-1)
-    q = torch.cat([q_nope, rope_pairs(q_rope, positions, cfg.rope_theta)],
-                  dim=-1) * (dn + dr) ** -0.5
-    k_rope = rope_pairs(k_rope[:, :, None], positions, cfg.rope_theta)
+    k_rope = k_rope[:, :, None]
+    if not cfg.mla_use_nope:
+        q_rope = rope_pairs(q_rope, positions, cfg.rope_theta)
+        k_rope = rope_pairs(k_rope, positions, cfg.rope_theta)
+    q = torch.cat([q_nope, q_rope], dim=-1) * (dn + dr) ** -0.5
     k = torch.cat([k_nope, k_rope.expand(B, S, h, dr)], dim=-1)
     out = L.attend(cfg, q, k, v, positions, positions, causal=True)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))

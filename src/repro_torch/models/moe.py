@@ -97,7 +97,7 @@ def _bincount(flat: torch.Tensor, E: int) -> torch.Tensor:
     return flat.new_zeros((E,)).index_add_(0, flat, torch.ones_like(flat))
 
 
-MOE_KINDS = ("moe", "ssm_moe", "mla_moe")
+MOE_KINDS = ("moe", "ssm_moe", "mla_moe", "kda_moe")
 
 
 def route_bias_shape(cfg) -> Tuple[int, int]:

@@ -72,13 +72,14 @@ def _split_proj(cfg, zxbcdt):
     return z, xBC, dt
 
 
-def _causal_conv(xBC, w, b):
-    """Depthwise causal conv, width K: xBC (B,S,C), w (K,C)."""
+def _causal_conv(xBC, w, b=None):
+    """Depthwise causal conv, width K, then SiLU: xBC (B,S,C), w (K,C), the
+    bias b (C,) or none."""
     K = w.shape[0]
     S = xBC.shape[1]
     pad = F.pad(xBC, (0, 0, K - 1, 0))
     out = sum(pad[:, i:i + S, :] * w[i] for i in range(K))
-    return F.silu(out + b)
+    return F.silu(out if b is None else out + b)
 
 
 def ssd_chunked(x, dt, A, B, C, chunk: int, unroll: bool = False):

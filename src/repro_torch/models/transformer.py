@@ -4,14 +4,16 @@ Port of ``repro.models.transformer`` for every block kind: ``attn``,
 ``local_attn``, ``moe``, ``ssm`` and ``rglru``; and the port's own
 ``ssm_moe`` (Granite-4.0-H: a Mamba-2 mixer, then an MoE FFN), ``mla``
 and ``mla_moe`` (DeepSeek-V3: latent attention, then a dense SwiGLU or an
-MoE FFN), which train but do not serve.  Each block's branches are scaled
-by ``cfg.residual_multiplier`` where it is not 1.  While the default
-registry records spans, each Mamba-2 mixer's, each latent attention's and
-each MoE FFN's forward pass is a fenced ``ssm`` / ``mla`` / ``moe`` span
-labelled with its ``layer`` (not the recomputation of a checkpointed
-block in the backward pass).  The sigmoid router's selection bias
-(``route_bias``, one row a MoE layer) is an argument of the stack, not a
-parameter.
+MoE FFN), ``kda`` and ``kda_moe`` (Kimi Linear: Kimi Delta Attention,
+then a dense SwiGLU or an MoE FFN), which train but do not serve.  Each
+block's branches are scaled by ``cfg.residual_multiplier`` where it is not
+1.  While the default registry records spans, each Mamba-2 mixer's, each
+latent attention's, each KDA mixer's and each MoE FFN's forward pass is a
+fenced ``ssm`` / ``mla`` / ``kda`` / ``moe`` span labelled with its
+``layer`` (not the recomputation of a checkpointed block in the backward
+pass).  The sigmoid router's selection bias (``route_bias``, one row a MoE
+layer) is an argument of the stack, not a parameter, handed to every MoE
+block (a softmax router takes no notice of it).
 
 The stack layout is the reference's: a homogeneous stack deeper than one
 layer (``_is_scannable``) keeps its layers' parameters and caches stacked
@@ -31,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree as T
 from repro_torch.core import telemetry as tele
 from repro_torch.kernels import prf
+from repro_torch.models import kda as K
 from repro_torch.models import layers as L
 from repro_torch.models import mla as A
 from repro_torch.models import moe as M
@@ -39,7 +42,11 @@ from repro_torch.models import ssm as S
 
 _ATTN_KINDS = ("attn", "local_attn", "moe")
 # block kinds that train but have no prefill or decode path
-TRAIN_ONLY_KINDS = ("ssm_moe", "mla", "mla_moe")
+TRAIN_ONLY_KINDS = ("ssm_moe", "mla", "mla_moe", "kda", "kda_moe")
+# each block kind's FFN after its mixer: a dense SwiGLU ("mlp"), an MoE
+# ("moe": the kinds of ``moe.MOE_KINDS``) or none
+FFN_KIND = {"attn": "mlp", "local_attn": "mlp", "rglru": "mlp", "mla": "mlp",
+            "kda": "mlp", "ssm": None, **{k: "moe" for k in M.MOE_KINDS}}
 
 
 def _window(cfg, kind: str):
@@ -77,11 +84,12 @@ def block_shapes(cfg, kind: str, lead=()) -> Dict:
                 "rec": R.rglru_shapes(cfg, lead),
                 "norm2": L.norm_shapes(cfg, d, lead),
                 "mlp": L.mlp_shapes(cfg, cfg.d_ff, lead)}
-    if kind in ("mla", "mla_moe"):
-        ffn = ({"mlp": L.mlp_shapes(cfg, cfg.d_ff, lead)} if kind == "mla"
-               else {"moe": M.moe_shapes(cfg, lead)})
-        return {"norm1": L.norm_shapes(cfg, d, lead),
-                "attn": A.mla_shapes(cfg, lead),
+    if kind in ("mla", "mla_moe", "kda", "kda_moe"):
+        mixer = ({"attn": A.mla_shapes(cfg, lead)} if kind.startswith("mla")
+                 else {"kda": K.kda_shapes(cfg, lead)})
+        ffn = ({"moe": M.moe_shapes(cfg, lead)} if FFN_KIND[kind] == "moe"
+               else {"mlp": L.mlp_shapes(cfg, cfg.d_ff, lead)})
+        return {"norm1": L.norm_shapes(cfg, d, lead), **mixer,
                 "norm2": L.norm_shapes(cfg, d, lead), **ffn}
     raise ValueError(kind)
 
@@ -115,11 +123,13 @@ def init_block(key, cfg, kind: str, device=None):
                 "rec": R.init_rglru_block(k1, cfg, device),
                 "norm2": L.init_norm(cfg, d, device),
                 "mlp": L.init_mlp(k2, cfg, cfg.d_ff, device)}
-    if kind in ("mla", "mla_moe"):
-        ffn = ({"mlp": L.init_mlp(k2, cfg, cfg.d_ff, device)}
-               if kind == "mla" else {"moe": M.init_moe(k2, cfg, device)})
-        return {"norm1": L.init_norm(cfg, d, device),
-                "attn": A.init_mla(k1, cfg, device),
+    if kind in ("mla", "mla_moe", "kda", "kda_moe"):
+        mixer = ({"attn": A.init_mla(k1, cfg, device)}
+                 if kind.startswith("mla")
+                 else {"kda": K.init_kda(k1, cfg, device)})
+        ffn = ({"moe": M.init_moe(k2, cfg, device)} if FFN_KIND[kind] == "moe"
+               else {"mlp": L.init_mlp(k2, cfg, cfg.d_ff, device)})
+        return {"norm1": L.init_norm(cfg, d, device), **mixer,
                 "norm2": L.init_norm(cfg, d, device), **ffn}
     raise ValueError(kind)
 
@@ -155,6 +165,13 @@ def _mla(cfg, p, x, positions, layer):
     return _add(cfg, x, y)
 
 
+def _kda(cfg, p, x, layer):
+    with _forward_span("kda", layer) as sp:
+        y = K.apply_kda(cfg, p["kda"], L.apply_norm(cfg, p["norm1"], x))
+        sp.fence(y)
+    return _add(cfg, x, y)
+
+
 def _mamba(cfg, p, x, layer):
     with _forward_span("ssm", layer) as sp:
         y = S.apply_mamba2(cfg, p["mamba"], L.apply_norm(cfg, p["norm1"], x))
@@ -171,30 +188,22 @@ def apply_block(cfg, p, x, positions, kind: str, *, use_ragged_moe=None,
         h = L.attention(cfg, p["attn"], L.apply_norm(cfg, p["norm1"], x),
                         positions, window=_window(cfg, kind))
         x = _add(cfg, x, h)
-        if kind == "moe":
-            x, aux = _moe(cfg, p, x, use_ragged_moe, layer)
-        else:
-            x = _add(cfg, x, L.apply_mlp(cfg, p["mlp"],
-                                         L.apply_norm(cfg, p["norm2"], x)))
-    elif kind == "ssm":
+    elif kind in ("ssm", "ssm_moe"):
         x = _mamba(cfg, p, x, layer)
-    elif kind == "ssm_moe":
-        x, aux = _moe(cfg, p, _mamba(cfg, p, x, layer), use_ragged_moe,
-                      layer)
     elif kind == "rglru":
         x = _add(cfg, x, R.apply_rglru_block(
             cfg, p["rec"], L.apply_norm(cfg, p["norm1"], x)))
-        x = _add(cfg, x, L.apply_mlp(cfg, p["mlp"],
-                                     L.apply_norm(cfg, p["norm2"], x)))
-    elif kind == "mla":
+    elif kind in ("mla", "mla_moe"):
         x = _mla(cfg, p, x, positions, layer)
-        x = _add(cfg, x, L.apply_mlp(cfg, p["mlp"],
-                                     L.apply_norm(cfg, p["norm2"], x)))
-    elif kind == "mla_moe":
-        x, aux = _moe(cfg, p, _mla(cfg, p, x, positions, layer),
-                      use_ragged_moe, layer, route_bias)
+    elif kind in ("kda", "kda_moe"):
+        x = _kda(cfg, p, x, layer)
     else:
         raise ValueError(kind)
+    if FFN_KIND[kind] == "moe":
+        x, aux = _moe(cfg, p, x, use_ragged_moe, layer, route_bias)
+    elif FFN_KIND[kind] == "mlp":
+        x = _add(cfg, x, L.apply_mlp(cfg, p["mlp"],
+                                     L.apply_norm(cfg, p["norm2"], x)))
     return x, aux
 
 
